@@ -9,7 +9,7 @@ one JSON line after each, failing loudly on the first fault:
 
 1. device   — a CUDA card must be present; prints its name and power
               limit (``nvidia-smi``).
-2. build    — compiles every kernel of the mapping path from
+2. build    — compiles every kernel of the port from
               ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at
               once) and prints the ``-Xptxas -v`` register / shared-memory
               report.
@@ -27,11 +27,23 @@ one JSON line after each, failing loudly on the first fault:
               equals the plain versions' on the CPU from the same start.
 5. forms    — the same path on a torus and on a fat-tree distance matrix
               packed to int8, at n = 1024.
+6. gain     — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
+              the main map's graph, machine and final permutation, with
+              the launch counts set to 0 just before and read just
+              after: G must equal the plain version on the card, the
+              host float64 ``dense_gain_matrix`` and K2's sparse gains at
+              the main map's candidate pairs exactly, be symmetric with a
+              zero diagonal; a ragged real-valued n = 1000 instance stays
+              within the float32 dot-product bound n·2⁻²²·max(|C|·|B|ᵀ)
+              of the plain version.  Times K3 beside its plain version,
+              cuBLAS's ``torch.mm(C, B.T)`` (one of its two products) and
+              its bound, and splits the call's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
-route, source, the TPU kernel it replaces, launches on the main path,
-max |kernel − plain|, ms, plain_ms, bound_ms, bound_by, library_ms); the
-last is ``{"ok": true, "device": {...}}``.  Without a card, or outside a
+route, source, the TPU kernel it replaces, launches on its path — the
+main map for K1 and K2, the gain call for K3 — max |kernel − plain|, ms,
+plain_ms, bound_ms, bound_by, library_ms); the last is ``{"ok": true,
+"device": {...}}``.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.
 """
 
@@ -108,7 +120,7 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels.cuda import build, library_path
     t0 = time.perf_counter()
-    reports = build(["qap_objective", "pair_gain"])
+    reports = build(["qap_objective", "pair_gain", "swap_gain"])
     secs = time.perf_counter() - t0
     for name, text in reports.items():
         for line in text.splitlines():
@@ -291,16 +303,38 @@ def phase_kernels(forms):
 
 
 # ------------------------------------------------------------ phase 4/5
+# the kernels each driven path must launch
+MAP_KERNELS = ("qap_objective", "pair_gains")
+GAIN_KERNELS = ("swap_gain_matrix",)
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import KERNELS
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import KERNELS
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def check_launched(launches: dict, expected, label: str) -> None:
+    for name in expected:
+        check(launches[name] > 0, f"{label}: kernel {name} was never "
+                                  f"launched on this path")
+
+
 def run_map(topo, g, label, compare_cpu):
     """One ``Mapper.map`` on the card with the launch counts reset just
     before and read just after; optionally the same refinement on the
-    CPU (plain versions) from the captured start."""
+    CPU (plain versions) from the captured start.  Returns the phase
+    record, the final permutation and the candidate pairs."""
     import numpy as np
     import torch
 
     from repro_torch.core import Mapper, MappingSpec, qap_objective
     from repro_torch.engine import RefinementEngine
-    from repro_torch.kernels import KERNELS
     mapper = Mapper(topo, MappingSpec(engine="device", backend="pallas"),
                     device=DEVICE)
     plan = mapper.lower_for(g)
@@ -319,13 +353,12 @@ def run_map(topo, g, label, compare_cpu):
 
     eng.refine = recording_refine           # records the inputs only
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS.values():
-        k.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = mapper.map(g)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     eng.refine = orig
     perm = res.perm
@@ -337,9 +370,7 @@ def run_map(topo, g, label, compare_cpu):
           f"{label}: jf {res.final_objective} != host {jf_host}")
     check(res.final_objective <= res.initial_objective,
           f"{label}: jf {res.final_objective} > j0 {res.initial_objective}")
-    for name, count in launches.items():
-        check(count > 0, f"{label}: kernel {name} was never launched on "
-                         f"the main path")
+    check_launched(launches, MAP_KERNELS, label)
     stats = res.search_stats
     syncs = dict(eng.last_syncs)
     out = {"phase": label, "n": n, "pairs": len(captured["pairs"]),
@@ -371,12 +402,134 @@ def run_map(topo, g, label, compare_cpu):
               f"{label}: card and CPU sweep/swap counts differ")
         out["equals_cpu"] = True
     emit(out)
-    return out
+    return out, perm, captured["pairs"]
+
+
+# ------------------------------------------------------------ phase 6
+def _host_s(fn):
+    """(result, seconds) of ``fn()`` ending in a device synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def ragged_instance(n: int, seed: int, density: float = 0.3):
+    """A random symmetric C of the given density and a random symmetric
+    D with a zero diagonal, and a permutation — the JAX package's kernel
+    test instance (``tests/test_kernels.py``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    C = np.triu(rng.random((n, n)) * (rng.random((n, n)) < density), 1)
+    C = C + C.T
+    D = np.triu(rng.random((n, n)), 1)
+    D = D + D.T
+    return C, D, rng.permutation(n)
+
+
+def phase_gain(topo, g, perm, pairs, forms):
+    """``Mapper.gain_matrix`` on the main map's graph, machine and final
+    permutation through K3, held against the plain version, the host
+    float64 formula and K2; then the ragged real-valued case and the
+    times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (DeviceGraph, Mapper, MappingSpec,
+                                  dense_gain_matrix, device_pairs)
+    from repro_torch.kernels import pair_gains
+    from repro_torch.kernels.ops import comm_matrix, permuted_distances
+    from repro_torch.kernels.swap_gain import (swap_gain_matrix,
+                                               swap_gain_matrix_plain)
+    dev = torch.device(DEVICE)
+    n = g.n
+    mapper = Mapper(topo, MappingSpec(engine="device", backend="pallas"),
+                    device=DEVICE)
+    reset_launches()
+    G, cold_s = _host_s(lambda: mapper.gain_matrix(g, perm))
+    launches = read_launches()
+    check_launched(launches, GAIN_KERNELS, "gain")
+    _, warm_s = _host_s(lambda: mapper.gain_matrix(g, perm))
+    check(G.shape == (n, n) and G.dtype == np.float32,
+          f"gain: G is {G.shape} {G.dtype}")
+    check(bool(np.all(np.isfinite(G))), "gain: G has non-finite entries")
+    check(np.array_equal(G, G.T), "gain: G is not symmetric")
+    check(bool(np.all(np.diag(G) == 0.0)), "gain: G has a nonzero diagonal")
+
+    # the call's parts, each timed alone with the same functions
+    D = torch.from_numpy(np.asarray(topo.matrix(), dtype=np.float32)).to(dev)
+    C, scatter_s = _host_s(lambda: comm_matrix(g, dev))
+    B, gather_s = _host_s(lambda: permuted_distances(D, perm))
+    Gd = swap_gain_matrix(C, B)
+    _, readback_s = _host_s(lambda: Gd.cpu())
+    plain = swap_gain_matrix_plain(C, B).cpu().numpy()
+    check(np.array_equal(G, plain), "gain: K3 != plain version on the card "
+          f"(max {float(np.max(np.abs(G - plain)))})")
+    C_host = g.to_dense()
+    check(np.array_equal(C.cpu().numpy(), C_host.astype(np.float32)),
+          "gain: the device C differs from to_dense()")
+    G_host = dense_gain_matrix(C_host, topo.matrix(), perm)
+    check(np.array_equal(G.astype(np.float64), G_host),
+          "gain: K3 != host float64 dense_gain_matrix (max "
+          f"{float(np.max(np.abs(G - G_host)))})")
+    # the dense form against the paper's sparse form (K2) at the main
+    # map's candidate pairs; positive = the objective drops, in both
+    kind, params, Dk = form_of(*forms["tree"], dev)
+    dg = DeviceGraph.from_comm(g, device=dev)
+    us, vs = device_pairs(pairs, device=dev)
+    p_dev = torch.from_numpy(np.asarray(perm, dtype=np.int32)).to(dev)
+    sparse = pair_gains(kind, params, dg.nbr, dg.wgt, p_dev, us, vs, Dk)
+    sparse = sparse[:len(pairs)].cpu().numpy()
+    dense = G[pairs[:, 0], pairs[:, 1]]
+    check(np.array_equal(dense, sparse),
+          "gain: G at the candidate pairs != K2 pair_gains (max "
+          f"{float(np.max(np.abs(dense - sparse)))})")
+
+    # ragged, real-valued: within the float32 dot-product error bound
+    nr = 1000
+    Cr, Dr, pr = ragged_instance(nr, nr)
+    Crt = torch.from_numpy(Cr.astype(np.float32)).to(dev)
+    Brt = permuted_distances(torch.from_numpy(Dr.astype(np.float32))
+                             .to(dev), pr)
+    got, want = swap_gain_matrix(Crt, Brt), swap_gain_matrix_plain(Crt, Brt)
+    real_err = float(torch.max(torch.abs(got - want)))
+    real_tol = nr * 2.0 ** -22 * float(torch.max(Crt.abs() @ Brt.abs().T))
+    check(real_err <= real_tol, f"gain: ragged real n = {nr}: max |K3 - "
+          f"plain| = {real_err} > {real_tol}")
+
+    ms = cuda_ms(lambda: swap_gain_matrix(C, B), iters=20, warmup=2)
+    kernel_s = ms / 1e3
+    plain_ms = cuda_ms(lambda: swap_gain_matrix_plain(C, B), iters=20,
+                       warmup=2)
+    library_ms = cuda_ms(lambda: torch.mm(C, B.T), iters=20, warmup=2)
+    # bytes: C and B read once, G written once; operations: the least
+    # work for G is one n×n×n product (M[v,u] = Mᵀ[u,v]), 2n³
+    bound_ms, bound_by = bound(nbytes(C, B) + n * n * 4, 2.0 * n ** 3)
+    rec = {"max_abs_err": max(float(np.max(np.abs(G - plain))), real_err),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "gain", "n": n, "launches": launches,
+          "call_seconds_cold": cold_s, "call_seconds_warm": warm_s,
+          "split_seconds": {"scatter_C": scatter_s, "gather_B": gather_s,
+                            "kernel": kernel_s, "readback": readback_s},
+          "equals_plain": True, "equals_host_float64": True,
+          "equals_pair_gains_at_pairs": len(pairs),
+          "positive_pairs": int(np.sum(dense > 0)),
+          "ragged_real": {"n": nr, "max_abs_err": real_err,
+                          "tol": real_tol},
+          "library_call": "torch.mm(C, B.T): one of K3's two products",
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "kernel": rec})
+    return rec, launches
 
 
 def main() -> int:
     preflight()
     import torch
+    # full float32 products in the plain versions and the library call
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_device()
     phase_build()
     forms = machines()
@@ -386,24 +539,33 @@ def main() -> int:
                                       TorusTopology)
     from repro_torch.topology.base import as_topology
     side = SIZE["side"]
-    main_run = run_map(as_topology(Hierarchy.from_strings(
-        SIZE["hierarchy"], SIZE["distances"])), grid3d(side, side, side),
-        "main", compare_cpu=True)
+    main_topo = as_topology(Hierarchy.from_strings(SIZE["hierarchy"],
+                                                   SIZE["distances"]))
+    main_g = grid3d(side, side, side)
+    main_run, main_perm, main_pairs = run_map(main_topo, main_g, "main",
+                                              compare_cpu=True)
     quarter = grid3d(side, side, side // 4)
     run_map(TorusTopology((side, side, side // 4)), quarter, "forms:torus",
             compare_cpu=False)
     run_map(MatrixTopology(matrix=FatTreeTopology(
         SIZE["forms_fattree"], (1.0, 1.0, 1.0)).distance_matrix()), quarter,
         "forms:fattree-matrix-int8", compare_cpu=False)
+    k3, gain_launches = phase_gain(main_topo, main_g, main_perm, main_pairs,
+                                   forms)
     kernels = []
-    for rec, name, source, replaces in (
-            (k1, "qap_objective", "src/repro_torch/csrc/qap_objective.cu",
+    for rec, launches, name, source, replaces in (
+            (k1, main_run["launches"], "qap_objective",
+             "src/repro_torch/csrc/qap_objective.cu",
              "src/repro/kernels/qap_objective.py:144"),
-            (k2, "pair_gains", "src/repro_torch/csrc/pair_gain.cu",
-             "src/repro/kernels/pair_gain.py:245")):
+            (k2, main_run["launches"], "pair_gains",
+             "src/repro_torch/csrc/pair_gain.cu",
+             "src/repro/kernels/pair_gain.py:245"),
+            (k3, gain_launches, "swap_gain_matrix",
+             "src/repro_torch/csrc/swap_gain.cu",
+             "src/repro/kernels/swap_gain.py:88")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": main_run["launches"][name],
+                        "launches": launches[name],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],

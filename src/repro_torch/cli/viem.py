@@ -11,7 +11,8 @@ Usage:
         [--distance_construction_algorithm=hierarchyonline]
         [--local_search_neighborhood=communication]
         [--communication_neighborhood_dist=10]
-        [--engine=device]                 # the port's sweep engine
+        [--engine=host|device]            # host numpy drivers / sweep engine
+        [--parallel_sweeps]               # host engine: batched sweeps
         [--backend=numpy|pallas]          # pallas: the CUDA objective
         [--kernel_block_rows=N] [--kernel_lanes=N]
         [--kernel_quantize={auto,off,int8,int16}]
@@ -21,9 +22,10 @@ Usage:
         [--output_filename=permutation]
     python -m repro_torch.cli.viem --list-algorithms
 
-The flags are the JAX package's ``repro.cli.viem`` flags.  Those of paths
-the port has not taken over yet — ``--multilevel*``, ``--portfolio*``,
-``--engine=host`` with a neighborhood, ``--profile``, ``--metrics-out``
+The flags are the JAX package's ``repro.cli.viem`` flags, and the
+defaults are its defaults (``engine="host"`` with the communication
+neighborhood).  Those of paths the port has not taken over yet —
+``--multilevel*``, ``--portfolio*``, ``--profile``, ``--metrics-out``
 and the ``remap-watch``/``lint`` subcommands — exit with an error that
 names the ROADMAP item.
 """
@@ -97,8 +99,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--parallel_sweeps",
                     action=argparse.BooleanOptionalAction, default=None)
     ap.add_argument("--engine", default=None, choices=["host", "device"],
-                    help="where the refinement loop runs; the port has "
-                         "the device engine only")
+                    help="where the refinement loop runs: the host numpy "
+                         "search drivers (default) or the device sweep "
+                         "engine")
     ap.add_argument("--backend", default=None, choices=["numpy", "pallas"],
                     help="objective evaluation: host float64 (numpy) or "
                          "the hand-written CUDA objective kernel (the "

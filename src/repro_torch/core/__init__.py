@@ -1,5 +1,5 @@
 """VieM core of the PyTorch/CUDA port: the staged mapping API over the
-flat device pipeline.
+flat pipeline (device or host search) and the dense gain matrix.
 
     from repro_torch.core import Hierarchy, Mapper, MappingSpec, grid3d
 
@@ -17,10 +17,13 @@ construct the same permutations and candidate pairs):
   graph        — CSR communication graphs, Metis IO, generators, and the
                  torch DeviceGraph / device_pairs
   hierarchy    — hierarchical topologies + cached online distance oracle
-  objective    — the host float64 QAP objective
+  objective    — the host float64 QAP objective, sparse swap gains and the
+                 dense gain matrix
   partition    — multilevel perfectly-balanced partitioner
   construction — registered constructions
-  local_search — SearchStats and the registered neighborhoods
+  local_search — SearchStats, the registered neighborhoods and the host
+                 search drivers
+  comm_model   — per-level traffic of a mapping
 """
 
 from .construction import list_constructions, register_construction
@@ -31,7 +34,8 @@ from .hierarchy import DistanceOracle, Hierarchy, supermuc_like, \
     tpu_v5e_fleet
 from .local_search import list_neighborhoods, register_neighborhood
 from .mapping import Mapper
-from .objective import qap_objective
+from .objective import dense_gain_matrix, qap_objective, \
+    qap_objective_dense, swap_gain
 from .plan import MappingPlan, MappingResult
 from .spec import MappingSpec, MultilevelSpec, PlanSpec, ShapeBucket, \
     TopologySpec
@@ -46,5 +50,5 @@ __all__ = [
     "TopologySpec",
     "list_constructions", "register_construction",
     "list_neighborhoods", "register_neighborhood",
-    "qap_objective",
+    "dense_gain_matrix", "qap_objective", "qap_objective_dense", "swap_gain",
 ]

@@ -1,15 +1,19 @@
 """Pair-exchange local search (guide §2.1): the port's copy of the JAX
 package's ``core/local_search.py`` — search statistics, the neighborhood
-registry and the candidate-pair generators.  The host search drivers
-(``_cyclic_search``, ``parallel_sweep_search``) are not ported yet
-(ROADMAP queue 1, item 5); the device engine
-(:mod:`repro_torch.engine`) is the port's search.
+registry, the candidate-pair generators and the host search drivers
+(``_cyclic_search``, ``local_search``, ``parallel_sweep_search``) behind
+``engine="host"``.  The device engine (:mod:`repro_torch.engine`) is the
+port's ``engine="device"`` search.
 
 ``--local_search_neighborhood=`` one of
   nsquare        — Heider's cyclic N² pair exchange,
   nsquarepruned  — Brandfass et al.'s pruned N²,
   communication  — the paper's N_C^d neighborhood over the communication
                    graph (default, with --communication_neighborhood_dist=10).
+
+All variants use the paper's *sparse* O(deg) gain (objective.swap_gain) and
+update the objective incrementally — the guide's central speedup over the
+O(n)-per-swap dense formulation.
 
 Neighborhoods live in a registry: ``@register_neighborhood("name")``
 wraps a candidate-pair generator ``fn(g, *, dist, max_pairs)`` — plus a
@@ -27,6 +31,7 @@ from typing import Callable
 import numpy as np
 
 from .graph import CommGraph, csr_expand
+from .objective import batched_swap_gains, qap_objective, swap_gain
 
 
 @dataclass
@@ -255,3 +260,102 @@ def _nsquare_neighborhood(g: CommGraph, **_) -> np.ndarray:
 @register_neighborhood("nsquarepruned")
 def _pruned_neighborhood(g: CommGraph, **_) -> np.ndarray:
     return pruned_pairs(g)
+
+
+# ------------------------------------------------------------------ drivers
+def _cyclic_search(g: CommGraph, h, perm: np.ndarray,
+                   pairs: np.ndarray, shuffle: bool, seed: int,
+                   max_sweeps: int = 50) -> SearchStats:
+    """Shared driver: visit candidate pairs cyclically (optionally in random
+    order, re-shuffled per cycle), swap on positive gain, terminate after a
+    full cycle (|pairs| tries) without success — the guide's termination
+    rule ('local search terminates after m unsuccessful swaps')."""
+    stats = SearchStats()
+    stats.initial_objective = qap_objective(g, h, perm)
+    cur = stats.initial_objective
+    stats.objective_trace.append(cur)
+    if len(pairs) == 0:
+        stats.final_objective = cur
+        return stats
+    rng = np.random.default_rng(seed)
+    unsuccessful = 0
+    for _sweep in range(max_sweeps):
+        order = rng.permutation(len(pairs)) if shuffle else np.arange(len(pairs))
+        for idx in order:
+            u, v = int(pairs[idx, 0]), int(pairs[idx, 1])
+            gain = swap_gain(g, h, perm, u, v)
+            stats.evaluated += 1
+            if gain > 1e-12:
+                perm[u], perm[v] = perm[v], perm[u]
+                cur -= gain
+                stats.swaps += 1
+                stats.objective_trace.append(cur)
+                unsuccessful = 0
+            else:
+                unsuccessful += 1
+                if unsuccessful >= len(pairs):
+                    stats.final_objective = cur
+                    return stats
+    stats.final_objective = cur
+    return stats
+
+
+def local_search(g: CommGraph, h, perm: np.ndarray,
+                 neighborhood: str = "communication",
+                 communication_neighborhood_dist: int = 10,
+                 seed: int = 0, max_sweeps: int = 50,
+                 max_pairs: int = 2_000_000) -> SearchStats:
+    """Improve ``perm`` in place.  Mirrors the guide's §4.1 flags; the
+    neighborhood is resolved through the registry."""
+    nb = resolve_neighborhood(neighborhood)
+    pairs = nb.generate(g, dist=communication_neighborhood_dist, seed=seed,
+                        max_pairs=max_pairs)
+    return _cyclic_search(g, h, perm, pairs, shuffle=nb.shuffle, seed=seed,
+                          max_sweeps=max_sweeps)
+
+
+# ----------------------------------------------- batched sweep (TPU-shaped)
+def parallel_sweep_search(g: CommGraph, h, perm: np.ndarray,
+                          pairs: np.ndarray, max_sweeps: int = 64,
+                          seed: int = 0) -> SearchStats:
+    """TPU-adapted search (DESIGN §3): per sweep, evaluate *all* candidate
+    pair gains at once (vectorized sparse gains — or the Pallas swap-gain
+    kernel on device for dense n), then greedily apply a maximal set of
+    non-conflicting positive-gain swaps (each process in at most one swap).
+
+    Gains of simultaneous swaps interact when the swapped pairs communicate
+    or share PE-adjacency, so the batch gains are treated as a *priority
+    order*: candidates are applied greedily in descending batched-gain
+    order, each verified with an exact O(deg) recomputed gain right before
+    application (skip if no longer positive).  The batch does the expensive
+    wide evaluation (device-friendly); verification is a cheap sparse pass.
+    Objective is monotone by construction.
+    """
+    stats = SearchStats()
+    stats.initial_objective = qap_objective(g, h, perm)
+    cur = stats.initial_objective
+    stats.objective_trace.append(cur)
+    if len(pairs) == 0:
+        stats.final_objective = cur
+        return stats
+    for _sweep in range(max_sweeps):
+        gains = batched_swap_gains(g, h, perm, pairs)
+        stats.evaluated += len(pairs)
+        pos = np.nonzero(gains > 1e-12)[0]
+        if len(pos) == 0:
+            break
+        order = pos[np.argsort(-gains[pos], kind="stable")]
+        applied = 0
+        for idx in order:
+            u, v = int(pairs[idx, 0]), int(pairs[idx, 1])
+            exact = swap_gain(g, h, perm, u, v)
+            if exact > 1e-12:
+                perm[u], perm[v] = perm[v], perm[u]
+                cur -= exact
+                applied += 1
+        if applied == 0:
+            break
+        stats.swaps += applied
+        stats.objective_trace.append(cur)
+    stats.final_objective = cur
+    return stats

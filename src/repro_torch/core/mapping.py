@@ -16,9 +16,9 @@ shared by its plans.  ``device`` is ``"cuda"`` unless the caller passes
 ``"cpu"``; it is a constructor argument, not a spec field, so spec dicts
 round-trip with the JAX package unchanged.
 
-This is the port of the JAX package's ``core/mapping.py`` for ``map``;
-``map_many``, the serving queue and ``gain_matrix`` are not ported yet
-(ROADMAP.md queue 1).
+This is the port of the JAX package's ``core/mapping.py`` for ``map``,
+``objective`` and ``gain_matrix``; ``map_many`` and the serving queue
+are not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -198,6 +198,14 @@ class Mapper:
         the objective kernel (``pallas``)."""
         spec = self.spec if spec is None else spec.validate()
         return self._eval_plan(spec).objective(g, perm)
+
+    def gain_matrix(self, g: CommGraph, perm,
+                    spec: MappingSpec | None = None):
+        """Full pair-exchange gain matrix via the spec's backend (dense —
+        small/medium n): the K3 kernel on the session's device
+        (``pallas``) or the host float64 formula (``numpy``)."""
+        spec = self.spec if spec is None else spec.validate()
+        return self._eval_plan(spec).gain_matrix(g, perm)
 
     # ----------------------------------------------------------------- map
     def map(self, g: CommGraph, spec: MappingSpec | None = None,

@@ -18,8 +18,10 @@ the graph into the plan's :class:`~repro_torch.core.spec.ShapeBucket`
 The seed is a runtime input (``execute(g, seed=)``).
 
 This is the port of the JAX package's ``core/plan.py`` for the flat
-pipeline.  Lowering a spec with a multilevel (more than one level) or
-portfolio block, or with the host search engine, raises
+pipeline, on both engines (``device``: the refinement engine; ``host``:
+the numpy search drivers of :mod:`.local_search`), and for the dense
+gain matrix (``gain_matrix``: K3 on the ``pallas`` backend).  Lowering a
+spec with a multilevel (more than one level) or portfolio block raises
 ``NotImplementedError`` naming its ROADMAP item.
 
 A plan is portable: ``to_json()``/``save()`` serialize its
@@ -43,8 +45,9 @@ from ..runtime.boundary import host_boundary
 from ..runtime.device import resolve_device
 from .construction import resolve_construction
 from .graph import CommGraph
-from .local_search import SearchStats, resolve_neighborhood
-from .objective import qap_objective
+from .local_search import (SearchStats, _cyclic_search,
+                           parallel_sweep_search, resolve_neighborhood)
+from .objective import dense_gain_matrix, qap_objective
 from .partition import PartitionConfig
 from .spec import MappingSpec, PlanSpec, ShapeBucket, TopologySpec
 
@@ -160,6 +163,26 @@ def build_objective_kernel(topology, config=None, device=None):
     return functools.partial(qap_objective_edges, kind, params, D=D)
 
 
+def build_swap_gain_kernel(topology, device=None):
+    """The dense gain matrix for the topology, bound to ``device``:
+    ``fn(g, perm) -> (n, n) float32 tensor``.  D is uploaded once, as
+    float32; C is scattered and B = D[perm][:, perm] gathered on the
+    device per call.  On CUDA it launches the K3 kernel, on the CPU its
+    plain version."""
+    import torch
+
+    from ..kernels.ops import comm_matrix, permuted_distances
+    from ..kernels.swap_gain import swap_gain_matrix
+    dev = resolve_device(device)
+    D = torch.from_numpy(np.asarray(topology.matrix(),
+                                    dtype=np.float32)).to(dev)
+
+    def gain_matrix(g: CommGraph, perm: np.ndarray):
+        return swap_gain_matrix(comm_matrix(g, dev),
+                                permuted_distances(D, perm))
+    return gain_matrix
+
+
 _PLAN_CACHE_CAPS = {"pairs": 16}
 
 
@@ -200,9 +223,6 @@ class MappingPlan:
             raise _not_ported("portfolio search", 3)
         if self.spec.resolved_multilevel() is not None:
             raise _not_ported("multilevel mapping", 2)
-        if self.spec.engine == "host" and self.spec.neighborhood is not None:
-            raise _not_ported("the host local-search drivers "
-                              "(engine='host')", 5)
         caps = dict(_PLAN_CACHE_CAPS)
         caps.update(cache_caps or {})
         # --- stage 1 (lower): resolve every handle the hot path needs
@@ -252,6 +272,7 @@ class MappingPlan:
                 self.topology, config=self.kernel_configs[0],
                 device=self.device)
             self.kernel_compiles += 1
+        self._swap_gain_fn = None
         # --- per-request state (graph-content keyed, LRU-bounded)
         self._pairs_lru = _LRU(caps["pairs"])
         self.executes = 0
@@ -387,6 +408,21 @@ class MappingPlan:
                 return float(self._objective_fn(eu, ev, ew, p))
         return qap_objective(g, self.topology, perm)
 
+    def gain_matrix(self, g: CommGraph, perm: np.ndarray) -> np.ndarray:
+        """Full pair-exchange gain matrix via the plan's backend (dense —
+        small/medium n): the K3 kernel on the plan's device (``pallas``,
+        float32) or the host float64 ``dense_gain_matrix`` (``numpy``)."""
+        perm = np.asarray(perm, dtype=np.int64)
+        if self.spec.backend == "pallas":
+            if self._swap_gain_fn is None:
+                self._swap_gain_fn = build_swap_gain_kernel(
+                    self.topology, device=self.device)
+                self.kernel_compiles += 1
+            G = self._swap_gain_fn(g, perm)
+            with host_boundary("plan.gain_matrix"):
+                return G.cpu().numpy()
+        return dense_gain_matrix(g.to_dense(), self.topology.matrix(), perm)
+
     def _construct_one(self, g: CommGraph, seed: int
                        ) -> tuple[np.ndarray, float, float]:
         with _TR.span("plan.construct", n=g.n,
@@ -438,12 +474,23 @@ class MappingPlan:
             if self._nb is not None:
                 pairs = self._pairs(g, seed)
                 rsp.attrs["pairs"] = len(pairs)
-                eng = self.engines[0]
-                stats = eng.refine(g, perm, pairs, j0=j0,
-                                   bucket=self.bucket, telemetry=telemetry)
-                rsp.attrs["syncs"] = dict(eng.last_syncs)
-                if stats.telemetry is not None:
-                    rsp.attrs["telemetry"] = stats.telemetry
+                kw = {} if self.spec.max_sweeps is None else \
+                    {"max_sweeps": self.spec.max_sweeps}
+                if self.spec.engine == "device":
+                    eng = self.engines[0]
+                    stats = eng.refine(g, perm, pairs, j0=j0,
+                                       bucket=self.bucket,
+                                       telemetry=telemetry)
+                    rsp.attrs["syncs"] = dict(eng.last_syncs)
+                    if stats.telemetry is not None:
+                        rsp.attrs["telemetry"] = stats.telemetry
+                elif self.spec.parallel_sweeps:
+                    stats = parallel_sweep_search(g, self.topology, perm,
+                                                  pairs, seed=seed, **kw)
+                else:
+                    stats = _cyclic_search(g, self.topology, perm, pairs,
+                                           shuffle=self._nb.shuffle,
+                                           seed=seed, **kw)
         return self._finish(g, perm, j0, t_cons, rsp.dur, stats)
 
 

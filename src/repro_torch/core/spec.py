@@ -385,8 +385,9 @@ class MappingSpec:
     ``neighborhood=None`` skips local search (construction only).
     ``parallel_sweeps`` selects the batched sweep over the paper's
     sequential search.  ``engine`` selects where the refinement loop
-    runs: ``"host"`` (the numpy drivers — not ported yet, lowering
-    raises) or ``"device"`` (the :mod:`repro_torch.engine` sweep loop —
+    runs: ``"host"`` (the numpy drivers of
+    :mod:`repro_torch.core.local_search`) or ``"device"`` (the
+    :mod:`repro_torch.engine` sweep loop —
     graph, perm, pairs, and objective stay in device tensors; implies
     the batched-sweep semantics, so ``parallel_sweeps`` is moot with it).
     ``backend`` selects how standalone objective evaluations are computed:
@@ -395,7 +396,8 @@ class MappingSpec:
     round-trip with the JAX package; in this port it selects the
     hand-written CUDA edge-list objective kernel
     (:mod:`repro_torch.kernels.qap_objective`), bound at ``lower`` time
-    and carried by the :class:`MappingPlan`.
+    and carried by the :class:`MappingPlan`, and the dense gain-matrix
+    kernel (:mod:`repro_torch.kernels.swap_gain`) for ``gain_matrix``.
     ``max_sweeps=None`` keeps each search driver's own default budget
     (for the device engine the budget then follows ``preconfiguration``:
     fast 32, eco 64, strong 128 sweeps).  ``multilevel`` enables the

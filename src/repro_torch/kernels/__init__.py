@@ -6,6 +6,15 @@
   pair_gain     — K2: sparse per-pair swap gains (``csrc/pair_gain.cu``),
                   replacing ``pair_gains_pallas``; also the engine's
                   ``edge_objective``
+  swap_gain     — K3: the dense O(n²) pair-exchange gain matrix
+                  (``csrc/swap_gain.cu``), replacing ``swap_gain_matrix``.
+                  As in the JAX package it is a reference path that plans
+                  never select for refinement (``Mapper.gain_matrix`` and
+                  ``ops.gain_matrix`` reach it) and it is not in
+                  ``__all__``
+  ops           — device wrappers (``gain_matrix``, ``objective``) and
+                  their ``*_ref`` twins
+  ref           — plain PyTorch oracles of the kernels
   config        — ``KernelConfig``: bucket/device-derived geometry and
                   lossless int8/int16 distance-table packing
   pad           — the one set of padding helpers (inert, append-only)
@@ -13,21 +22,22 @@
 
 Every wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain PyTorch version for CPU tensors; nothing here is built or
-loaded at import.  The dense swap-gain matrix (K3) and flash attention
-(K4) are not ported yet (ROADMAP.md).
+loaded at import.  Flash attention (K4) is not ported yet (ROADMAP.md).
 """
 
-from . import pad
+from . import ops, pad, ref
 from .config import KernelConfig, derive_kernel_config, quantize_table
 from .pair_gain import (PAIR_GAIN_KERNEL, edge_objective, pair_gains,
                         pair_gains_plain)
 from .qap_objective import (OBJECTIVE_KERNEL, qap_objective_edges,
                             qap_objective_plain)
+from .swap_gain import SWAP_GAIN_KERNEL, swap_gain_matrix  # noqa: F401
 
-__all__ = ["pad", "KernelConfig", "derive_kernel_config", "quantize_table",
-           "PAIR_GAIN_KERNEL", "edge_objective", "pair_gains",
-           "pair_gains_plain", "OBJECTIVE_KERNEL", "qap_objective_edges",
-           "qap_objective_plain", "KERNELS"]
+__all__ = ["ops", "pad", "ref", "KernelConfig", "derive_kernel_config",
+           "quantize_table", "PAIR_GAIN_KERNEL", "edge_objective",
+           "pair_gains", "pair_gains_plain", "OBJECTIVE_KERNEL",
+           "qap_objective_edges", "qap_objective_plain", "KERNELS"]
 
-# every hand-written kernel on the mapping path, by name
-KERNELS = {"qap_objective": OBJECTIVE_KERNEL, "pair_gains": PAIR_GAIN_KERNEL}
+# every hand-written kernel of the port, by name
+KERNELS = {"qap_objective": OBJECTIVE_KERNEL, "pair_gains": PAIR_GAIN_KERNEL,
+           "swap_gain_matrix": SWAP_GAIN_KERNEL}

@@ -13,7 +13,8 @@ Tolerances: integer weights and distances must match exactly (every
 float32 sum of them is exact in any order).  With real weights the
 kernel and the plain version add the same float32 terms in different
 orders: K1 agrees to rtol 1e-6 of Σ|w·d|, K2 to rtol 1e-6 of each pair's
-Σ|w|·(|d_a| + |d_b|).
+Σ|w|·(|d_a| + |d_b|), and K3 (the dense gain matrix, four float32 dot
+products of length n per entry) to n·2⁻²²·max(|C|·|B|ᵀ).
 """
 
 import numpy as np
@@ -24,8 +25,12 @@ import repro_torch.core as tc
 from repro_torch.core.local_search import communication_pairs
 from repro_torch.engine import RefinementEngine
 from repro_torch.kernels import (OBJECTIVE_KERNEL, PAIR_GAIN_KERNEL,
-                                 pair_gains, pair_gains_plain,
-                                 qap_objective_edges, qap_objective_plain)
+                                 SWAP_GAIN_KERNEL, pair_gains,
+                                 pair_gains_plain, qap_objective_edges,
+                                 qap_objective_plain)
+from repro_torch.kernels.ops import permuted_distances
+from repro_torch.kernels.swap_gain import (swap_gain_matrix,
+                                           swap_gain_matrix_plain)
 from repro_torch.kernels.config import quantize_table
 from repro_torch.topology import MatrixTopology, TorusTopology
 
@@ -181,3 +186,56 @@ def test_kernel_wrappers_reject_mixed_devices(cuda):
     with pytest.raises(ValueError, match="must be torch.int32"):
         qap_objective_edges(kind, params, eu.long(), eu, torch.zeros(
             8, device=cuda), eu, D)
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "real"])
+@pytest.mark.parametrize("n", [8, 64, 257, 1000])         # 257, 1000: ragged
+def test_swap_gain_kernel_equals_plain(cuda, n, integer):
+    rng = np.random.default_rng(n)
+    if integer:
+        vc, vd = rng.integers(1, 10, (n, n)), rng.integers(1, 100, (n, n))
+    else:
+        vc, vd = rng.random((n, n)), rng.random((n, n))
+    C = np.triu(vc * (rng.random((n, n)) < 0.3), 1)
+    D = np.triu(vd, 1)
+    Ct = torch.from_numpy((C + C.T).astype(np.float32)).to(cuda)
+    Dt = torch.from_numpy((D + D.T).astype(np.float32)).to(cuda)
+    B = permuted_distances(Dt, rng.permutation(n))
+    before = SWAP_GAIN_KERNEL.launches
+    got = swap_gain_matrix(Ct, B)
+    assert SWAP_GAIN_KERNEL.launches == before + 1
+    want = swap_gain_matrix_plain(Ct, B)
+    torch.cuda.synchronize()
+    assert got.shape == (n, n) and got.dtype == torch.float32
+    if integer:
+        assert torch.equal(got, want)
+        assert torch.equal(got, got.T)
+    else:
+        tol = n * 2.0 ** -22 * float(torch.max(Ct.abs() @ B.abs().T))
+        assert float(torch.max(torch.abs(got - want))) <= tol
+    assert torch.all(torch.diagonal(got) == 0.0)
+    # bf16 inputs are cast to float32 first, as the JAX package does
+    half = swap_gain_matrix(Ct.to(torch.bfloat16), B.to(torch.bfloat16))
+    assert half.dtype == torch.float32
+
+
+def test_mapper_gain_matrix_on_card_equals_cpu(cuda):
+    h = tc.Hierarchy((8, 8, 8), (1.0, 10.0, 100.0))
+    g = tc.grid3d(8, 8, 8)
+    perm = np.random.default_rng(1).permutation(N)
+    spec = tc.MappingSpec(backend="pallas")
+    before = SWAP_GAIN_KERNEL.launches
+    got = tc.Mapper(h, spec).gain_matrix(g, perm)
+    assert SWAP_GAIN_KERNEL.launches == before + 1
+    want = tc.Mapper(h, spec, device="cpu").gain_matrix(g, perm)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got.astype(np.float64), tc.dense_gain_matrix(
+        g.to_dense(), h.distance_matrix(), perm))
+
+
+def test_swap_gain_wrapper_rejects_mixed_devices(cuda):
+    C = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        swap_gain_matrix(C, torch.zeros((8, 8)))
+    with pytest.raises(ValueError, match="contiguous"):
+        swap_gain_matrix(C.T, C)

@@ -19,7 +19,8 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules
                 if k in ("jax", "repro") or k.startswith(("jax.", "repro.")))
-print(json.dumps({"modules": len(names), "leaked": leaked}))
+print(json.dumps({"modules": len(names), "names": names,
+                  "leaked": leaked}))
 """
 
 
@@ -29,5 +30,8 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout)
-    assert report["modules"] >= 25        # every submodule was imported
+    assert report["modules"] >= 30        # every submodule was imported
+    assert {"repro_torch.core.comm_model", "repro_torch.cli.evaluator",
+            "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+            "repro_torch.kernels.swap_gain"} <= set(report["names"])
     assert report["leaked"] == [], f"repro_torch pulled in {report}"

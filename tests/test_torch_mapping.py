@@ -6,7 +6,8 @@ and backend ``"pallas"`` (the objective kernel's plain version here) or
 objective and search statistics *exactly* on all five topologies
 (integer weights and distances: every float32 sum is exact).  Also:
 spec and plan-spec dict round trips, plan save/load, the ``viem`` CLI's
-permutation file, and the unported pipelines raising.
+permutation file, and the unported pipelines raising (the host engine
+is ported: ``tests/test_torch_search.py``).
 """
 
 import functools
@@ -173,7 +174,8 @@ def test_cli_writes_the_reference_permutation(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--multilevel"], ["--portfolio"],
-                                   ["--engine=host"], ["--profile=t.json"]])
+                                   ["--metrics-out=m.json"],
+                                   ["--profile=t.json"]])
 def test_cli_unported_flags_exit(tmp_path, flags):
     from repro_torch.cli import viem as port_cli
     graph = tmp_path / "g.metis"
@@ -189,7 +191,7 @@ def test_cli_unported_flags_exit(tmp_path, flags):
 @pytest.mark.parametrize("block,item", [
     ({"multilevel": {"levels": 3}}, "item 2"),
     ({"portfolio": {"lanes": 2}}, "item 3"),
-    ({"engine": "host"}, "item 5"),
+    ({"multilevel": {"levels": 2, "coarsen_min": 8}}, "item 2"),
 ])
 def test_unported_pipelines_raise(block, item):
     d = dict(_spec("pallas").to_dict(), **block)
