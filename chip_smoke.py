@@ -38,12 +38,30 @@ one JSON line after each, failing loudly on the first fault:
               of the plain version.  Times K3 beside its plain version,
               cuBLAS's ``torch.mm(C, B.T)`` (one of its two products) and
               its bound, and splits the call's wall time.
+7. flash    — holds K4 (flash attention) against its plain version on
+              the card at the serve shape (B 4, T 2048, H 32, KV 8, hd
+              128, bf16) and at starcoder2-7b's windowed shape (B 1, T
+              8192, H 36, KV 4, hd 128, window 4096, bf16), and on small
+              float32 cases (ragged T, G = 1, MQA); times K4, its plain
+              version and ``scaled_dot_product_attention`` (the yardstick;
+              the port never calls it) beside the bound.
+8. serve    — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
+              at the full published config (40 layers, random weights)
+              with the launch counts set to 0 just before and read just
+              after: K4 must launch once per layer of the prefill and the
+              decode loop must make no host sync.  Then the same weights
+              and prompts again: the prefill through K4 against the same
+              prefill with K4's plain version, both on the card; the
+              device time of a prefill and of 4 decode steps by kernel
+              (torch.profiler) beside their wall time; and the same path
+              at float32 and full width, 2 layers, K4 against the plain
+              version.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, launches on its path — the
-main map for K1 and K2, the gain call for K3 — max |kernel − plain|, ms,
-plain_ms, bound_ms, bound_by, library_ms); the last is ``{"ok": true,
-"device": {...}}``.  Without a card, or outside a
+main map for K1 and K2, the gain call for K3, the serve call for K4 —
+max |kernel − plain|, ms, plain_ms, bound_ms, bound_by, library_ms); the
+last is ``{"ok": true, "device": {...}}``.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.
 """
 
@@ -58,10 +76,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32
-# outside the tensor cores (the kernels' arithmetic is scalar fp32/int32)
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
+# outside the tensor cores (K1-K3's arithmetic is scalar fp32/int32), and
+# bf16 on the tensor cores (the least time for K4's bf16 attention)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 ITERS = 100
 
 # the main path's size: Schulz & Träff's S = 4:16:k, D = 1:10:100 with
@@ -120,7 +140,8 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels.cuda import build, library_path
     t0 = time.perf_counter()
-    reports = build(["qap_objective", "pair_gain", "swap_gain"])
+    reports = build(["qap_objective", "pair_gain", "swap_gain",
+                     "flash_attention"])
     secs = time.perf_counter() - t0
     for name, text in reports.items():
         for line in text.splitlines():
@@ -154,9 +175,9 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved: int, flops: float) -> tuple:
+def bound(bytes_moved: int, flops: float, peak: float = PEAK_FP32) -> tuple:
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FP32 * 1e3
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
 
@@ -306,6 +327,7 @@ def phase_kernels(forms):
 # the kernels each driven path must launch
 MAP_KERNELS = ("qap_objective", "pair_gains")
 GAIN_KERNELS = ("swap_gain_matrix",)
+SERVE_KERNELS = ("flash_attention",)
 
 
 def reset_launches() -> None:
@@ -524,6 +546,348 @@ def phase_gain(topo, g, perm, pairs, forms):
           "kernel": rec})
     return rec, launches
 
+# ------------------------------------------------------------ phase 7
+# K4 at the serve phase's prefill shape (granite-3-8b, B 4 x T 2048) and at
+# starcoder2-7b's sliding-window attention (T 8192, window 4096), bf16;
+# small cases at float32 and bf16: T ragged against the 64-row tiles, G = 1
+# with a window, MQA, and T = 64 (one kv tile per query row, so both sides
+# round the same p).  (b, t, h, kv, hd, window)
+FLASH_SHAPES = {"serve": (4, 2048, 32, 8, 128, 0),
+                "window": (1, 8192, 36, 4, 128, 4096)}
+FLASH_SMALL = {"ragged": (2, 333, 8, 2, 64, 0),
+               "g1-window": (1, 200, 4, 4, 32, 48),
+               "mqa": (2, 130, 8, 1, 128, 0),
+               "one-tile": (4, 64, 32, 8, 128, 0),
+               "one-tile-window": (2, 64, 8, 2, 96, 16)}
+FLASH_F32_TOL = 2e-5    # the same float32 terms summed in other orders
+
+
+def visible_pairs(t: int, window: int) -> int:
+    """(query, key) pairs per head that the causal (window) mask keeps."""
+    if window <= 0 or window >= t:
+        return t * (t + 1) // 2
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def flash_case(shape, dtype, seed):
+    """K4 against its plain version on seeded inputs.  float32: max |Δ| ≤
+    FLASH_F32_TOL.  bfloat16: every |Δ| within its element's limit and
+    the mean |Δ| within the mean limit of ``flash_bf16_limits``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_kernel
+    from repro_torch.kernels.ref import (flash_attention_plain,
+                                         flash_bf16_limits)
+    b, t, h, kv, hd, window = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v = (torch.randn((b, t, n, hd), generator=gen, device=DEVICE)
+               .to(dtype) for n in (h, kv, kv))
+    got = flash_attention_kernel(q, k, v, window=window)
+    want, wide = flash_attention_plain(q, k, v, window=window, spread=True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"K4 {shape}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    rec = {"max_abs_err": float(diff.max()),
+           "mean_abs_err": float(diff.mean()),
+           "mean_abs_plain": float(want.float().abs().mean())}
+    if dtype == torch.float32:
+        rec["tol"] = FLASH_F32_TOL
+        check(rec["max_abs_err"] <= FLASH_F32_TOL,
+              f"K4 {shape} float32: max |kernel - plain| = "
+              f"{rec['max_abs_err']} > {FLASH_F32_TOL}")
+    else:
+        elem, mean_limit = flash_bf16_limits(want, wide, one_tile=t <= 64)
+        rec.update(max_share_of_limit=float((diff / elem).max()),
+                   mean_limit=mean_limit, mean_spread=float(wide.mean()))
+        check(rec["max_share_of_limit"] <= 1.0,
+              f"K4 {shape} bf16: |kernel - plain| beyond its element's "
+              f"limit by {rec['max_share_of_limit']}x")
+        check(rec["mean_abs_err"] <= mean_limit,
+              f"K4 {shape} bf16: mean |kernel - plain| = "
+              f"{rec['mean_abs_err']} > {mean_limit}")
+    del wide, diff
+    again = flash_attention_kernel(q, k, v, window=window)
+    check(torch.equal(got, again), f"K4 {shape}: not deterministic")
+    return (q, k, v), want, rec
+
+
+def sdpa_fn(q, k, v, window):
+    """One PyTorch call computing the same function, on (B, H, T, hd)
+    copies: the yardstick, timed only here."""
+    import torch
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if not window:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    i = torch.arange(q.shape[1], device=q.device)
+    diff = i[:, None] - i[None, :]
+    mask = (diff >= 0) & (diff < window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def phase_flash():
+    """K4 against its plain version at the path's shapes and at small
+    cases; times of K4, the plain version and SDPA beside the bound.
+    Returns the serve shape's record for the kernels line."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_kernel
+    from repro_torch.kernels.ref import flash_attention_plain
+    worst = 0.0
+    for name, shape in FLASH_SMALL.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            _, _, rec = flash_case(shape, dtype, 1)
+            worst = max(worst, rec["max_abs_err"])
+            emit({"phase": "flash", "case": name, "shape": shape,
+                  "dtype": str(dtype).removeprefix("torch."), **rec})
+    records = {}
+    for name, shape in FLASH_SHAPES.items():
+        b, t, h, kv, hd, window = shape
+        (q, k, v), want, rec = flash_case(shape, torch.bfloat16, 2)
+        worst = max(worst, rec["max_abs_err"])
+        heavy = name == "window"
+        ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, window=window),
+                     iters=5 if heavy else 10, warmup=1)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
+                                                         window=window),
+                           iters=2 if heavy else 5, warmup=1)
+        lib = sdpa_fn(q, k, v, window)
+        lib_err = float((lib().transpose(1, 2).float() - want.float())
+                        .abs().max())
+        library_ms = cuda_ms(lib, iters=5 if heavy else 10, warmup=1)
+        # operations: 4·hd flop per visible (query, key) pair per head;
+        # bytes: q, k, v read once, o written once
+        flops = 4.0 * hd * visible_pairs(t, window) * b * h
+        bound_ms, bound_by = bound(nbytes(q, k, v) + nbytes(q), flops,
+                                   PEAK_BF16)
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   gflop=flops / 1e9,
+                   tflops_achieved=flops / (ms * 1e-3) / 1e12,
+                   sdpa_max_abs_err=lib_err)
+        records[name] = rec
+        emit({"phase": "flash", "case": name, "shape": shape,
+              "dtype": "bfloat16", **rec})
+        del q, k, v, want, lib
+        torch.cuda.empty_cache()
+    rec = dict(records["serve"], max_abs_err=worst)
+    emit({"phase": "flash", "library_call": "torch.nn.functional."
+          "scaled_dot_product_attention(is_causal / window mask, "
+          "enable_gqa=True) on (B, H, T, hd) copies",
+          "max_abs_err_all_cases": worst})
+    return rec, records
+
+
+# ------------------------------------------------------------ phase 8
+# the serving path at granite-3-8b's full published config
+SERVE = {"arch": "granite-3-8b", "batch": 4, "prompt_len": 2048, "gen": 32,
+         "seed": 0}
+# K4 prefill vs the same prefill with the plain version, both on the card,
+# bf16, 40 layers: the two round p to bfloat16 at different maxima (K4 at
+# its running max, the plain version at the row max) and their float32
+# scores differ in the last bits, and depth amplifies both: on the CPU a
+# 40-layer model (d_model 512) moves by relative Frobenius 0.033 under
+# last-bit score changes and 0.044 under K4's rounding order, max 0.23 and
+# 0.36 (tests/test_torch_lm.py::test_depth_amplifies_*)
+SERVE_TOL = {"rel_fro": 0.1, "max_abs": 1.0}
+# the same path at float32, full width, 2 layers: the CPU tests' logits
+# tolerance against the JAX package
+SERVE_F32 = {"n_layers": 2, "max_abs": 1e-4}
+
+
+def logits_diff(got, want, vocab):
+    import torch
+    a = got[..., :vocab].float()
+    b = want[..., :vocab].float()
+    d = a - b
+    return {"max_abs": float(d.abs().max()),
+            "mean_abs": float(d.abs().mean()),
+            "rel_fro": float(torch.linalg.vector_norm(d)
+                             / torch.linalg.vector_norm(b)),
+            "last_argmax_agree": float((a[:, -1].argmax(-1)
+                                        == b[:, -1].argmax(-1))
+                                       .float().mean())}
+
+
+def prefill_pair(cfg, seed, batch, prompt_len, max_len):
+    """The prefill of ``cfg``'s seeded weights on the seeded prompts
+    through K4, and again with K4's plain version in its place.  Returns
+    (logits, plain logits, K4 prefill seconds, plain seconds, params,
+    prompts)."""
+    import torch
+
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.transformer import (init_params,
+                                                prefill_with_cache)
+    params = init_params(seed, cfg, device=DEVICE)
+    prompts = make_prompts(cfg, batch, prompt_len, seed, DEVICE)
+    run = lambda: prefill_with_cache(params, prompts, cfg,  # noqa: E731
+                                     max_len)[0]
+    with torch.inference_mode():
+        logits, k4_s = _host_s(run)
+        kernel = attention.flash_attention_kernel
+        attention.flash_attention_kernel = flash_attention_plain
+        try:
+            plain, plain_s = _host_s(run)
+        finally:
+            attention.flash_attention_kernel = kernel
+    return logits, plain, k4_s, plain_s, params, prompts
+
+
+def device_split(fn):
+    """Profile one call of ``fn`` (ending in a synchronize) with
+    torch.profiler: the kernels' device time by name (kernel events
+    only, so a kernel is not counted again under the operator that
+    launched it), grouped into K4, matmuls and the rest, the host-clock
+    wall time of the profiled call, and the device's idle share of it.
+    {"error": ...} if the profiler gives no device time on this
+    machine."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    except (RuntimeError, AttributeError) as exc:
+        return {"error": f"{type(exc).__name__}: {exc}"}
+    busy = sum(ms for _, ms, _ in rows)
+    if busy <= 0:
+        return {"error": "the profiler recorded no device time"}
+    groups = {"K4 flash_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, ms, _ in rows:
+        low = name.lower()
+        if "flash_fwd" in low:
+            groups["K4 flash_fwd"] += ms
+        elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
+                                    "cutlass", "sm90_")):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "kernel_launches": sum(c for _, _, c in rows),
+            "groups_ms": groups,
+            "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
+                            for n, ms, c in top]}
+
+
+def phase_serve(k4_serve_ms):
+    """The serve call at the full config with the launch counts reset
+    just before and read just after; then the prefill's K4 against the
+    plain version on the card, its split, and the float32 check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    arch, batch = SERVE["arch"], SERVE["batch"]
+    prompt_len, gen, seed = SERVE["prompt_len"], SERVE["gen"], SERVE["seed"]
+    cfg = get_config(arch)
+    max_len = prompt_len + gen
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = serve(arch, batch=batch, prompt_len=prompt_len, gen=gen,
+                seed=seed, device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check_launched(launches, SERVE_KERNELS, "serve")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"serve: K4 launched {launches['flash_attention']} times, "
+          f"expected {cfg.n_layers} (one per layer of the prefill)")
+    check(out["decode_syncs"] == 0,
+          f"serve: {out['decode_syncs']} host syncs in the decode loop")
+    tokens = out["tokens"].cpu()
+    check(tuple(tokens.shape) == (batch, gen) and
+          tokens.dtype == torch.int32, f"serve: tokens {tokens.shape} "
+                                       f"{tokens.dtype}")
+    check(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
+          "serve: a token outside the vocabulary")
+    emit({"phase": "serve", "arch": arch, "batch": batch,
+          "prompt_len": prompt_len, "gen": gen,
+          "params": cfg.param_count(), "dtype": cfg.dtype,
+          "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+          "decode_step_ms": out["decode_s"] / (gen - 1) * 1e3,
+          "decode_tok_per_s": out["decode_tok_per_s"],
+          "decode_syncs": out["decode_syncs"], "serve_call_s": wall,
+          "max_memory_allocated": peak, "launches": launches,
+          "sample": tokens[0, :8].tolist()})
+    del out
+    torch.cuda.empty_cache()
+
+    # the same weights and prompts: K4 against the plain version
+    logits, plain, k4_s, plain_s, params, prompts = prefill_pair(
+        cfg, seed, batch, prompt_len, max_len)
+    check(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+          "serve: non-finite prefill logits")
+    diff = logits_diff(logits, plain, cfg.vocab_size)
+    check(diff["rel_fro"] <= SERVE_TOL["rel_fro"] and
+          diff["max_abs"] <= SERVE_TOL["max_abs"],
+          f"serve: K4 prefill vs plain prefill {diff} beyond {SERVE_TOL}")
+    # serve's first token is the argmax of this same prefill (same weights,
+    # prompts and kernels; rows whose top two logits lie within a few
+    # bfloat16 spacings are not held to it)
+    last = logits[:, -1, :cfg.vocab_size].float()
+    top2 = torch.topk(last, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 0.1
+    first = last.argmax(-1).to(torch.int32).cpu()
+    check(bool(torch.all((first == tokens[:, 0]) | ~sure.cpu())),
+          "serve: first generated token != argmax of the rebuilt prefill")
+    del logits, plain
+    from repro_torch.models.transformer import prefill_with_cache
+    from repro_torch.train.steps import serve_step
+    with torch.inference_mode():
+        prefill_prof = device_split(
+            lambda: prefill_with_cache(params, prompts, cfg, max_len))
+        _, caches = prefill_with_cache(params, prompts, cfg, max_len)
+        tok = tokens[:, :1].to(DEVICE)
+
+        def decode_steps(n=4):
+            nonlocal tok
+            for i in range(n):
+                tok, _ = serve_step(params, tok, caches, prompt_len + i, cfg)
+
+        decode_steps()                  # warm
+        decode_prof = device_split(decode_steps)
+    del params, prompts, caches
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=SERVE_F32["n_layers"])
+    l32, p32, _, _, _, _ = prefill_pair(cfg32, seed, batch, prompt_len,
+                                        max_len)
+    diff32 = logits_diff(l32, p32, cfg.vocab_size)
+    check(diff32["max_abs"] <= SERVE_F32["max_abs"],
+          f"serve: float32 K4 prefill vs plain {diff32} beyond {SERVE_F32}")
+    del l32, p32
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "check": "prefill K4 vs plain on the card",
+          "bf16_full": diff, "tol": SERVE_TOL,
+          "float32_full_width": dict(diff32, n_layers=cfg32.n_layers,
+                                     tol=SERVE_F32["max_abs"]),
+          "prefill_warm_s": k4_s, "prefill_plain_s": plain_s,
+          "k4_share_of_warm_prefill": cfg.n_layers * k4_serve_ms / 1e3
+          / k4_s,
+          "prefill_profile": prefill_prof,
+          "decode_profile_4_steps": decode_prof})
+    return launches
+
 
 def main() -> int:
     preflight()
@@ -552,6 +916,8 @@ def main() -> int:
         "forms:fattree-matrix-int8", compare_cpu=False)
     k3, gain_launches = phase_gain(main_topo, main_g, main_perm, main_pairs,
                                    forms)
+    k4, _ = phase_flash()
+    serve_launches = phase_serve(k4["ms"])
     kernels = []
     for rec, launches, name, source, replaces in (
             (k1, main_run["launches"], "qap_objective",
@@ -562,7 +928,10 @@ def main() -> int:
              "src/repro/kernels/pair_gain.py:245"),
             (k3, gain_launches, "swap_gain_matrix",
              "src/repro_torch/csrc/swap_gain.cu",
-             "src/repro/kernels/swap_gain.py:88")):
+             "src/repro/kernels/swap_gain.py:88"),
+            (k4, serve_launches, "flash_attention",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:115")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": launches[name],

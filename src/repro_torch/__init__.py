@@ -7,7 +7,10 @@ The port runs the flat device mapping path —
 objective and the sparse pair gains), the dense gain matrix
 (``Mapper.gain_matrix``) through a third, and the host search drivers
 (``engine="host"``, the default) and the ``viem``/``evaluator`` CLIs on
-top.  Each kernel (:mod:`repro_torch.kernels`) has a plain PyTorch
+top.  The LM substrate's serving path
+(:func:`repro_torch.launch.serve.serve`: prefill + greedy decode of the
+dense configs) runs its attention through a fourth kernel, flash
+attention.  Each kernel (:mod:`repro_torch.kernels`) has a plain PyTorch
 version for CPU tensors.  Entry points take a
 ``device`` argument: ``"cuda"`` by default, ``"cpu"`` on request; they
 never fall back.  The package imports torch and numpy only — never jax

@@ -16,6 +16,8 @@ device.  The port never imports ``repro``: the caller does the
                                  device="cuda")
     us, vs = convert.pairs(np.asarray(us_ref), np.asarray(vs_ref), "cuda")
     perm  = convert.perm(np.asarray(perm_ref), "cuda")
+    model = convert.lm_params(jax.tree.map(np.asarray, params_ref), cfg,
+                              "cuda")
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ from .core.graph import CommGraph, DeviceGraph
 from .core.spec import MappingSpec, PlanSpec, TopologySpec
 from .runtime.device import resolve_device
 
-__all__ = ["device_graph", "graph", "pairs", "perm", "plan_spec", "spec",
-           "topology", "topology_from_matrix"]
+__all__ = ["device_graph", "graph", "lm_params", "pairs", "perm",
+           "plan_spec", "spec", "topology", "topology_from_matrix"]
 
 
 def spec(d: dict) -> MappingSpec:
@@ -92,3 +94,39 @@ def pairs(us, vs, device=None) -> tuple:
 def perm(p, device=None):
     """A permutation (process → PE, as numpy) → an int32 device tensor."""
     return _tensor(p, np.int32, resolve_device(device))
+
+
+def _lm_tensor(a, device):
+    """A numpy array of the JAX package's weights → a tensor of the same
+    type; bfloat16 arrives as numpy's ``bfloat16`` extension type and is
+    moved bit for bit."""
+    import torch
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def lm_params(tree: dict, cfg, device=None):
+    """The JAX package's ``init_params`` tree, as numpy arrays
+    (``embeddings`` and ``periods[pos][name]`` stacked over n_periods) →
+    the port's :class:`~repro_torch.models.transformer.Transformer` on
+    ``device``.  Layer i = period·p + pos takes ``periods[pos]`` at index
+    ``period``."""
+    from .models.transformer import Transformer
+    dev = resolve_device(device)
+    p = cfg.period
+    emb = {k: _lm_tensor(a, dev) for k, a in tree["embeddings"].items()}
+
+    def layer(i):
+        period, pos = divmod(i, p)
+        src = tree["periods"][pos]
+        return {"norm1": _lm_tensor(src["norm1"][period], dev),
+                "norm2": _lm_tensor(src["norm2"][period], dev),
+                "mixer": {k: _lm_tensor(a[period], dev)
+                          for k, a in src["mixer"].items()},
+                "ffn": {k: _lm_tensor(a[period], dev)
+                        for k, a in src["ffn"].items()}}
+
+    return Transformer(cfg, emb, [layer(i) for i in range(cfg.n_layers)])

@@ -12,6 +12,9 @@
                   never select for refinement (``Mapper.gain_matrix`` and
                   ``ops.gain_matrix`` reach it) and it is not in
                   ``__all__``
+  flash_attention — K4: causal / sliding-window GQA attention forward
+                  (``csrc/flash_attention.cu``), replacing
+                  ``flash_attention_kernel``; the LM path's attention core
   ops           — device wrappers (``gain_matrix``, ``objective``) and
                   their ``*_ref`` twins
   ref           — plain PyTorch oracles of the kernels
@@ -22,11 +25,12 @@
 
 Every wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain PyTorch version for CPU tensors; nothing here is built or
-loaded at import.  Flash attention (K4) is not ported yet (ROADMAP.md).
+loaded at import.
 """
 
 from . import ops, pad, ref
 from .config import KernelConfig, derive_kernel_config, quantize_table
+from .flash_attention import FLASH_KERNEL, flash_attention_kernel
 from .pair_gain import (PAIR_GAIN_KERNEL, edge_objective, pair_gains,
                         pair_gains_plain)
 from .qap_objective import (OBJECTIVE_KERNEL, qap_objective_edges,
@@ -34,10 +38,11 @@ from .qap_objective import (OBJECTIVE_KERNEL, qap_objective_edges,
 from .swap_gain import SWAP_GAIN_KERNEL, swap_gain_matrix  # noqa: F401
 
 __all__ = ["ops", "pad", "ref", "KernelConfig", "derive_kernel_config",
-           "quantize_table", "PAIR_GAIN_KERNEL", "edge_objective",
-           "pair_gains", "pair_gains_plain", "OBJECTIVE_KERNEL",
+           "quantize_table", "FLASH_KERNEL", "flash_attention_kernel",
+           "PAIR_GAIN_KERNEL", "edge_objective", "pair_gains", "pair_gains_plain", "OBJECTIVE_KERNEL",
            "qap_objective_edges", "qap_objective_plain", "KERNELS"]
 
 # every hand-written kernel of the port, by name
 KERNELS = {"qap_objective": OBJECTIVE_KERNEL, "pair_gains": PAIR_GAIN_KERNEL,
-           "swap_gain_matrix": SWAP_GAIN_KERNEL}
+           "swap_gain_matrix": SWAP_GAIN_KERNEL,
+           "flash_attention": FLASH_KERNEL}

@@ -14,7 +14,10 @@ float32 sum of them is exact in any order).  With real weights the
 kernel and the plain version add the same float32 terms in different
 orders: K1 agrees to rtol 1e-6 of Σ|w·d|, K2 to rtol 1e-6 of each pair's
 Σ|w|·(|d_a| + |d_b|), and K3 (the dense gain matrix, four float32 dot
-products of length n per entry) to n·2⁻²²·max(|C|·|B|ᵀ).
+products of length n per entry) to n·2⁻²²·max(|C|·|B|ᵀ).  K4 (flash
+attention) is held to 2e-5 at float32, and at bfloat16 to a limit per
+element and a limit on the mean |difference| from
+``kernels.ref.flash_bf16_limits`` (``_assert_flash_close``).
 """
 
 import numpy as np
@@ -24,11 +27,14 @@ import torch
 import repro_torch.core as tc
 from repro_torch.core.local_search import communication_pairs
 from repro_torch.engine import RefinementEngine
-from repro_torch.kernels import (OBJECTIVE_KERNEL, PAIR_GAIN_KERNEL,
-                                 SWAP_GAIN_KERNEL, pair_gains,
+from repro_torch.kernels import (FLASH_KERNEL, OBJECTIVE_KERNEL,
+                                 PAIR_GAIN_KERNEL, SWAP_GAIN_KERNEL,
+                                 flash_attention_kernel, pair_gains,
                                  pair_gains_plain, qap_objective_edges,
                                  qap_objective_plain)
 from repro_torch.kernels.ops import permuted_distances
+from repro_torch.kernels.ref import (flash_attention_plain,
+                                     flash_bf16_limits)
 from repro_torch.kernels.swap_gain import (swap_gain_matrix,
                                            swap_gain_matrix_plain)
 from repro_torch.kernels.config import quantize_table
@@ -239,3 +245,108 @@ def test_swap_gain_wrapper_rejects_mixed_devices(cuda):
         swap_gain_matrix(C, torch.zeros((8, 8)))
     with pytest.raises(ValueError, match="contiguous"):
         swap_gain_matrix(C.T, C)
+
+
+# ------------------------------------------------------------------ K4
+# (H, KV, hd): G = H / KV of 1, 3, 4 and 9 over the kernel's four head dims
+FLASH_HEADS = [(4, 4, 64), (6, 2, 96), (8, 2, 128), (9, 1, 32)]
+
+
+def _assert_flash_close(got, q, k, v, window):
+    """float32: max |Δ| ≤ 2e-5 (the same float32 terms in other orders).
+    bfloat16: every |Δ| within its element's limit, 2⁻⁷·|plain| +
+    2⁻⁵·spread, and the mean |Δ| within the mean limit (the limits and
+    their derivation: ``flash_bf16_limits``)."""
+    want, wide = flash_attention_plain(q, k, v, window=window, spread=True)
+    diff = (got.float() - want.float()).abs()
+    if q.dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5, float(diff.max())
+        return
+    elem, mean = flash_bf16_limits(want, wide, one_tile=q.shape[1] <= 64)
+    assert bool((diff <= elem).all()), float((diff / elem).max())
+    assert float(diff.mean()) <= mean, (float(diff.mean()), mean)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 48, 4096])
+@pytest.mark.parametrize("h,kv,hd", FLASH_HEADS)
+def test_flash_kernel_equals_plain(cuda, h, kv, hd, window, dtype):
+    # T ragged against the 64-row tiles; longer than the 4096 window
+    b, t = (1, 4500) if window == 4096 else (2, 333)
+    gen = torch.Generator(device=cuda).manual_seed(h * 1000 + window)
+    q, k, v = (torch.randn((b, t, n, hd), generator=gen, device=cuda)
+               .to(dtype) for n in (h, kv, kv))
+    before = FLASH_KERNEL.launches
+    got = flash_attention_kernel(q, k, v, window=window)
+    assert FLASH_KERNEL.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    _assert_flash_close(got, q, k, v, window)
+    assert torch.equal(got, flash_attention_kernel(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("h,kv,hd", FLASH_HEADS)
+def test_flash_kernel_rounds_p_as_plain_in_one_tile(cuda, h, kv, hd, window):
+    """T = 64: one kv tile per query row, so K4's running max is the row
+    max and K4 rounds the same p to bfloat16 as the plain version; the
+    mean limit is then 2⁻¹³·mean(spread); p left unrounded differs by
+    2⁻¹⁰·mean(spread) there (tests/test_torch_flash.py)."""
+    gen = torch.Generator(device=cuda).manual_seed(h * 100 + window)
+    q, k, v = (torch.randn((3, 64, n, hd), generator=gen, device=cuda)
+               .to(torch.bfloat16) for n in (h, kv, kv))
+    _assert_flash_close(flash_attention_kernel(q, k, v, window=window),
+                        q, k, v, window)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 64, 4, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_kernel(q, q[:, :, :2], q[:, :, :2].clone())
+    q = torch.zeros((1, 64, 4, 64), device=cuda)
+    k = torch.zeros((1, 64, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_kernel(q.transpose(1, 2).contiguous()
+                               .transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="is on cpu"):
+        flash_attention_kernel(q, k.cpu(), k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_on_card_equals_cpu(cuda, dtype):
+    """The smoke granite prefill through K4 on the card against the plain
+    version on the CPU, same weights.  float32 within 1e-4 (TF32 is off);
+    bfloat16 within max 0.1 and mean 0.02, the tolerance the CPU tests
+    hold the port to against the JAX package (tests/test_torch_lm.py)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.transformer import (init_params,
+                                                prefill_with_cache)
+    cfg = dataclasses.replace(get_smoke_config("granite-3-8b"), dtype=dtype)
+    params = init_params(0, cfg, device="cpu")
+    toks = make_prompts(cfg, 2, 96, 0, "cpu")
+    want, caches_cpu = prefill_with_cache(params, toks, cfg, 100)
+    before = FLASH_KERNEL.launches
+    got, caches = prefill_with_cache(params.to(cuda), toks.to(cuda), cfg,
+                                     100)
+    assert FLASH_KERNEL.launches == before + cfg.n_layers
+    diff = (got.cpu().float() - want.float())[..., :cfg.vocab_size].abs()
+    if dtype == "float32":
+        assert float(diff.max()) <= 1e-4
+    else:
+        assert float(diff.max()) <= 0.1 and float(diff.mean()) <= 0.02
+    assert len(caches) == len(caches_cpu) == cfg.n_layers
+
+
+def test_serve_on_card_makes_no_decode_sync(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve
+    before = FLASH_KERNEL.launches
+    out = serve("granite-3-8b", batch=2, prompt_len=100, gen=8, smoke=True)
+    cfg = get_smoke_config("granite-3-8b")
+    assert FLASH_KERNEL.launches == before + cfg.n_layers   # one prefill
+    assert out["decode_syncs"] == 0
+    assert out["tokens"].shape == (2, 8) and out["tokens"].is_cuda

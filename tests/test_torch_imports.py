@@ -33,5 +33,10 @@ def test_port_imports_no_jax_and_no_repro():
     assert report["modules"] >= 30        # every submodule was imported
     assert {"repro_torch.core.comm_model", "repro_torch.cli.evaluator",
             "repro_torch.kernels.ops", "repro_torch.kernels.ref",
-            "repro_torch.kernels.swap_gain"} <= set(report["names"])
+            "repro_torch.kernels.swap_gain",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.configs.base", "repro_torch.configs.granite_3_8b",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.transformer", "repro_torch.train.steps",
+            "repro_torch.launch.serve"} <= set(report["names"])
     assert report["leaked"] == [], f"repro_torch pulled in {report}"
