@@ -42,24 +42,33 @@ one JSON line after each, failing loudly on the first fault:
               the card at the serve shape (B 4, T 2048, H 32, KV 8, hd
               128, bf16) and at starcoder2-7b's windowed shape (B 1, T
               8192, H 36, KV 4, hd 128, window 4096, bf16), and on small
-              float32 cases (ragged T, G = 1, MQA); times K4, its plain
-              version and ``scaled_dot_product_attention`` (the yardstick;
-              the port never calls it) beside the bound.
+              cases at float32 and bf16 (T ragged against both routes'
+              tiles, T = 1, G = 1, MQA, one kv tile); every case must take
+              its dtype's route (bf16: ``csrc/flash_attention_sm90.cu``,
+              float32: ``csrc/flash_attention.cu``) and no other.  Times
+              K4, its plain version and ``scaled_dot_product_attention``
+              (the yardstick; the port never calls it) beside the bound,
+              at both shapes in bf16 and at the serve shape in float32.
 8. serve    — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
               at the full published config (40 layers, random weights)
               with the launch counts set to 0 just before and read just
-              after: K4 must launch once per layer of the prefill and the
-              decode loop must make no host sync.  Then the same weights
+              after: K4's bf16 route must launch once per layer of the
+              prefill, its float32 route never, and the decode loop must
+              make no host sync.  Then the same weights
               and prompts again: the prefill through K4 against the same
               prefill with K4's plain version, both on the card; the
               device time of a prefill and of 4 decode steps by kernel
               (torch.profiler) beside their wall time; and the same path
               at float32 and full width, 2 layers, K4 against the plain
-              version.
+              version, with the counts set to 0 just before and read just
+              after: the float32 route once per layer, the bf16 route
+              never.
 
-The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
-route, source, the TPU kernel it replaces, launches on its path — the
-main map for K1 and K2, the gain call for K3, the serve call for K4 —
+The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
+K4 one per route: route, source, the TPU kernel it replaces, launches on
+its path — the main map for K1 and K2, the gain call for K3, the serve
+call for K4's bf16 route and the float32 prefill check for its float32
+route —
 max |kernel − plain|, ms, plain_ms, bound_ms, bound_by, library_ms); the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -141,7 +150,7 @@ def phase_build():
     from repro_torch.kernels.cuda import build, library_path
     t0 = time.perf_counter()
     reports = build(["qap_objective", "pair_gain", "swap_gain",
-                     "flash_attention"])
+                     "flash_attention", "flash_attention_sm90"])
     secs = time.perf_counter() - t0
     for name, text in reports.items():
         for line in text.splitlines():
@@ -327,7 +336,8 @@ def phase_kernels(forms):
 # the kernels each driven path must launch
 MAP_KERNELS = ("qap_objective", "pair_gains")
 GAIN_KERNELS = ("swap_gain_matrix",)
-SERVE_KERNELS = ("flash_attention",)
+SERVE_KERNELS = ("flash_attention",)            # K4, bf16 route
+F32_KERNELS = ("flash_attention_f32",)          # K4, float32 route
 
 
 def reset_launches() -> None:
@@ -547,18 +557,26 @@ def phase_gain(topo, g, perm, pairs, forms):
     return rec, launches
 
 # ------------------------------------------------------------ phase 7
-# K4 at the serve phase's prefill shape (granite-3-8b, B 4 x T 2048) and at
-# starcoder2-7b's sliding-window attention (T 8192, window 4096), bf16;
-# small cases at float32 and bf16: T ragged against the 64-row tiles, G = 1
-# with a window, MQA, and T = 64 (one kv tile per query row, so both sides
-# round the same p).  (b, t, h, kv, hd, window)
-FLASH_SHAPES = {"serve": (4, 2048, 32, 8, 128, 0),
-                "window": (1, 8192, 36, 4, 128, 4096)}
+# K4 at the serve phase's prefill shape (granite-3-8b, B 4 x T 2048), bf16
+# and float32 (the float32 check's shape), and at starcoder2-7b's
+# sliding-window attention (T 8192, window 4096), bf16; small cases at
+# float32 and bf16: T ragged against the 64-row float32 tiles and the
+# 128-row bf16 tiles, T = 1, G = 1 with a window, MQA, and T = 64 (one kv
+# tile per query row, so both sides round the same p).
+# (b, t, h, kv, hd, window)
+FLASH_SHAPES = {"serve": ((4, 2048, 32, 8, 128, 0), "bfloat16"),
+                "window": ((1, 8192, 36, 4, 128, 4096), "bfloat16"),
+                "serve-f32": ((4, 2048, 32, 8, 128, 0), "float32")}
 FLASH_SMALL = {"ragged": (2, 333, 8, 2, 64, 0),
                "g1-window": (1, 200, 4, 4, 32, 48),
                "mqa": (2, 130, 8, 1, 128, 0),
                "one-tile": (4, 64, 32, 8, 128, 0),
-               "one-tile-window": (2, 64, 8, 2, 96, 16)}
+               "one-tile-window": (2, 64, 8, 2, 96, 16),
+               "t1": (2, 1, 8, 2, 128, 0),
+               "t127": (2, 127, 8, 2, 128, 0),
+               "t128": (2, 128, 8, 2, 128, 0),
+               "t129": (2, 129, 6, 2, 96, 0),
+               "t4500-window": (1, 4500, 8, 2, 128, 4096)}
 FLASH_F32_TOL = 2e-5    # the same float32 terms summed in other orders
 
 
@@ -578,11 +596,18 @@ def flash_case(shape, dtype, seed):
     from repro_torch.kernels import flash_attention_kernel
     from repro_torch.kernels.ref import (flash_attention_plain,
                                          flash_bf16_limits)
+    from repro_torch.kernels import FLASH_F32_KERNEL, FLASH_KERNEL
     b, t, h, kv, hd, window = shape
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     q, k, v = (torch.randn((b, t, n, hd), generator=gen, device=DEVICE)
                .to(dtype) for n in (h, kv, kv))
+    route, other = ((FLASH_KERNEL, FLASH_F32_KERNEL)
+                    if dtype == torch.bfloat16
+                    else (FLASH_F32_KERNEL, FLASH_KERNEL))
+    before, before_other = route.launches, other.launches
     got = flash_attention_kernel(q, k, v, window=window)
+    check(route.launches == before + 1 and other.launches == before_other,
+          f"K4 {shape} {dtype}: did not take the {route.name} route alone")
     want, wide = flash_attention_plain(q, k, v, window=window, spread=True)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"K4 {shape}: non-finite output")
@@ -630,24 +655,27 @@ def sdpa_fn(q, k, v, window):
 def phase_flash():
     """K4 against its plain version at the path's shapes and at small
     cases; times of K4, the plain version and SDPA beside the bound.
-    Returns the serve shape's record for the kernels line."""
+    Returns the records of the timed shapes and the largest |kernel -
+    plain| over every case of each dtype."""
     import torch
 
     from repro_torch.kernels import flash_attention_kernel
     from repro_torch.kernels.ref import flash_attention_plain
-    worst = 0.0
+    worst = {"bfloat16": 0.0, "float32": 0.0}
     for name, shape in FLASH_SMALL.items():
         for dtype in (torch.float32, torch.bfloat16):
             _, _, rec = flash_case(shape, dtype, 1)
-            worst = max(worst, rec["max_abs_err"])
+            key = str(dtype).removeprefix("torch.")
+            worst[key] = max(worst[key], rec["max_abs_err"])
             emit({"phase": "flash", "case": name, "shape": shape,
-                  "dtype": str(dtype).removeprefix("torch."), **rec})
+                  "dtype": key, **rec})
     records = {}
-    for name, shape in FLASH_SHAPES.items():
+    for name, (shape, dname) in FLASH_SHAPES.items():
         b, t, h, kv, hd, window = shape
-        (q, k, v), want, rec = flash_case(shape, torch.bfloat16, 2)
-        worst = max(worst, rec["max_abs_err"])
-        heavy = name == "window"
+        dtype = getattr(torch, dname)
+        (q, k, v), want, rec = flash_case(shape, dtype, 2)
+        worst[dname] = max(worst[dname], rec["max_abs_err"])
+        heavy = name != "serve"
         ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, window=window),
                      iters=5 if heavy else 10, warmup=1)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
@@ -657,11 +685,14 @@ def phase_flash():
         lib_err = float((lib().transpose(1, 2).float() - want.float())
                         .abs().max())
         library_ms = cuda_ms(lib, iters=5 if heavy else 10, warmup=1)
-        # operations: 4·hd flop per visible (query, key) pair per head;
+        # operations: 4·hd flop per visible (query, key) pair per head, at
+        # the bf16 tensor-core peak for bf16 and the CUDA cores' float32
+        # peak for float32 (full float32, which TF32 would not give);
         # bytes: q, k, v read once, o written once
         flops = 4.0 * hd * visible_pairs(t, window) * b * h
-        bound_ms, bound_by = bound(nbytes(q, k, v) + nbytes(q), flops,
-                                   PEAK_BF16)
+        bound_ms, bound_by = bound(
+            nbytes(q, k, v) + nbytes(q), flops,
+            PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
         rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    gflop=flops / 1e9,
@@ -669,15 +700,14 @@ def phase_flash():
                    sdpa_max_abs_err=lib_err)
         records[name] = rec
         emit({"phase": "flash", "case": name, "shape": shape,
-              "dtype": "bfloat16", **rec})
+              "dtype": dname, **rec})
         del q, k, v, want, lib
         torch.cuda.empty_cache()
-    rec = dict(records["serve"], max_abs_err=worst)
     emit({"phase": "flash", "library_call": "torch.nn.functional."
           "scaled_dot_product_attention(is_causal / window mask, "
           "enable_gqa=True) on (B, H, T, hd) copies",
           "max_abs_err_all_cases": worst})
-    return rec, records
+    return records, worst
 
 
 # ------------------------------------------------------------ phase 8
@@ -765,6 +795,7 @@ def device_split(fn):
     busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
         return {"error": "the profiler recorded no device time"}
+    # K4: flash_fwd_sm90 (bf16 route) and flash_fwd (float32 route)
     groups = {"K4 flash_fwd": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms, _ in rows:
         low = name.lower()
@@ -809,8 +840,11 @@ def phase_serve(k4_serve_ms):
     peak = torch.cuda.max_memory_allocated()
     check_launched(launches, SERVE_KERNELS, "serve")
     check(launches["flash_attention"] == cfg.n_layers,
-          f"serve: K4 launched {launches['flash_attention']} times, "
+          f"serve: K4 (bf16) launched {launches['flash_attention']} times, "
           f"expected {cfg.n_layers} (one per layer of the prefill)")
+    check(launches["flash_attention_f32"] == 0,
+          f"serve: K4's float32 route launched "
+          f"{launches['flash_attention_f32']} times in a bf16 serve")
     check(out["decode_syncs"] == 0,
           f"serve: {out['decode_syncs']} host syncs in the decode loop")
     tokens = out["tokens"].cpu()
@@ -870,8 +904,15 @@ def phase_serve(k4_serve_ms):
 
     cfg32 = dataclasses.replace(cfg, dtype="float32",
                                 n_layers=SERVE_F32["n_layers"])
+    reset_launches()
     l32, p32, _, _, _, _ = prefill_pair(cfg32, seed, batch, prompt_len,
                                         max_len)
+    f32_launches = read_launches()
+    check_launched(f32_launches, F32_KERNELS, "serve float32 check")
+    check(f32_launches["flash_attention_f32"] == cfg32.n_layers and
+          f32_launches["flash_attention"] == 0,
+          f"serve float32 check: K4 launches {f32_launches}, expected "
+          f"{cfg32.n_layers} of the float32 route and 0 of the bf16 one")
     diff32 = logits_diff(l32, p32, cfg.vocab_size)
     check(diff32["max_abs"] <= SERVE_F32["max_abs"],
           f"serve: float32 K4 prefill vs plain {diff32} beyond {SERVE_F32}")
@@ -880,13 +921,14 @@ def phase_serve(k4_serve_ms):
     emit({"phase": "serve", "check": "prefill K4 vs plain on the card",
           "bf16_full": diff, "tol": SERVE_TOL,
           "float32_full_width": dict(diff32, n_layers=cfg32.n_layers,
-                                     tol=SERVE_F32["max_abs"]),
+                                     tol=SERVE_F32["max_abs"],
+                                     launches=f32_launches),
           "prefill_warm_s": k4_s, "prefill_plain_s": plain_s,
           "k4_share_of_warm_prefill": cfg.n_layers * k4_serve_ms / 1e3
           / k4_s,
           "prefill_profile": prefill_prof,
           "decode_profile_4_steps": decode_prof})
-    return launches
+    return launches, f32_launches
 
 
 def main() -> int:
@@ -916,8 +958,8 @@ def main() -> int:
         "forms:fattree-matrix-int8", compare_cpu=False)
     k3, gain_launches = phase_gain(main_topo, main_g, main_perm, main_pairs,
                                    forms)
-    k4, _ = phase_flash()
-    serve_launches = phase_serve(k4["ms"])
+    k4, k4_worst = phase_flash()
+    serve_launches, f32_launches = phase_serve(k4["serve"]["ms"])
     kernels = []
     for rec, launches, name, source, replaces in (
             (k1, main_run["launches"], "qap_objective",
@@ -929,7 +971,12 @@ def main() -> int:
             (k3, gain_launches, "swap_gain_matrix",
              "src/repro_torch/csrc/swap_gain.cu",
              "src/repro/kernels/swap_gain.py:88"),
-            (k4, serve_launches, "flash_attention",
+            (dict(k4["serve"], max_abs_err=k4_worst["bfloat16"]),
+             serve_launches, "flash_attention",
+             "src/repro_torch/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention.py:115"),
+            (dict(k4["serve-f32"], max_abs_err=k4_worst["float32"]),
+             f32_launches, "flash_attention_f32",
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:115")):
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -1,41 +1,44 @@
-// K4 — causal / sliding-window GQA flash attention, forward:
+// K4, float32 route — causal / sliding-window GQA flash attention,
+// forward, at float32:
 //
 //   o[b,t,h] = Σ_s softmax_s(q[b,t,h]·k[b,s,h/G]·hd^-½ | mask) · v[b,s,h/G]
 //
 // with q (B,T,H,hd), k and v (B,S,KV,hd), S = T, G = H/KV, and the mask
 // t ≥ s (causal), also t − s < window when window > 0.  Masked scores are
 // −1e30.  q·k is taken in float32; the online softmax (running max m,
-// running sum l, accumulator acc) is float32; p is rounded to v's type
-// before p·v, whose products accumulate in float32; o = acc / max(l,
-// 1e-30), rounded to q's type.  float32 and bfloat16 inputs, hd ∈ {32,
-// 64, 96, 128}.
+// running sum l, accumulator acc) is float32; p·v's products accumulate
+// in float32; o = acc / max(l, 1e-30).  float32 inputs, hd ∈ {32, 64,
+// 96, 128}.  bfloat16 inputs go to csrc/flash_attention_sm90.cu (wgmma
+// and TMA); this file keeps float32 only, because the reference's
+// float32 q·k is full float32, which the tensor cores (TF32) would not
+// give.  It serves the float32 checks of the serving path.
 //
 // Replaces: src/repro/kernels/flash_attention.py — flash_attention_kernel
-// (`_flash_fwd`, body `_flash_kernel`).  The TPU version runs a grid
-// (B·KV·G, q blocks, kv blocks) whose kv axis is sequential, carries
-// m, l and acc across it in VMEM scratch, expands GQA through its k/v
-// index map and halves a block size until it divides T.
+// (`_flash_fwd`, body `_flash_kernel`), for float32 inputs.  The TPU
+// version runs a grid (B·KV·G, q blocks, kv blocks) whose kv axis is
+// sequential, carries m, l and acc across it in VMEM scratch, expands
+// GQA through its k/v index map and halves a block size until it
+// divides T.
 //
 // Bound on the H100: operations.  Causal attention does 4·hd flop per
 // visible (query, key) pair, 2·B·H·hd·T² in all: 137 GFLOP at the serve
-// shape (B 4, T 2048, H 32, hd 128), 0.139 ms at the 989 TFLOP/s bf16
-// tensor-core peak; q, k, v and o are 84 MB (0.025 ms at 3.35 TB/s).
-// This kernel uses the fp32 CUDA cores (67 TFLOP/s), so it cannot come
-// near that bound; it is the simple, right version first.
+// shape (B 4, T 2048, H 32, hd 128), 2.05 ms at the 67 TFLOP/s float32
+// peak of the CUDA cores, which is all full float32 can use; q, k, v and
+// o are 168 MB at float32 (0.050 ms at 3.35 TB/s).
 //
 // Design:
 //   * One block of 256 threads per (b, h, 64-row q tile); blockIdx.x runs
 //     the q tiles in reverse, so the tiles with the most keys start first.
 //     The head's KV head is h / G: GQA shares k and v by indexing, no
 //     expanded copy exists.  Blocks run in no order and share nothing.
-//   * The q tile is staged once, d-major, as float32 in shared memory.
-//     The block then loops over 64-row kv tiles: stage k (d-major) and v
-//     (row-major) as float32, S = Q·Kᵀ with each thread owning a 4×4
-//     micro-tile (rows 4·ty.., columns 4·tx..), scale, mask, the online
-//     softmax update (row max and row sum reduced over the 16 threads of
-//     a row group with shuffles), P rounded to v's type written over the
-//     k tile, then acc += P·V with each thread owning its 4 rows ×
-//     columns {32c + 2·tx, 32c + 2·tx + 1}.
+//   * The q tile is staged once, d-major, in shared memory.  The block
+//     then loops over 64-row kv tiles: stage k (d-major) and v
+//     (row-major), S = Q·Kᵀ with each thread owning a 4×4 micro-tile
+//     (rows 4·ty.., columns 4·tx..), scale, mask, the online softmax
+//     update (row max and row sum reduced over the 16 threads of a row
+//     group with shuffles), P written over the k tile, then acc += P·V
+//     with each thread owning its 4 rows × columns {32c + 2·tx, 32c +
+//     2·tx + 1}.
 //   * Ragged edges are masked instead of padded: q rows ≥ T and k/v rows
 //     ≥ S load as zeros, and only rows < T are stored (the TPU's halving
 //     of the block until it divides T is gone).
@@ -50,11 +53,7 @@
 //     the one of visiting every tile, as the TPU kernel does.
 //   * Products are explicit __fmaf_rn (the library is built with
 //     --fmad=false); exp is the accurate expf; the final divide is
-//     __fdiv_rn.  No tensor cores: scores stay float32 as the reference's.
-//
-// Later work, not done here: wgmma on bf16 tiles with the softmax in
-// registers, TMA-fed k/v rings, several q heads of one KV group per block.
-#include <cuda_bf16.h>
+//     __fdiv_rn.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -83,25 +82,6 @@ struct Elem<float> {
   static __device__ __forceinline__ void store2(float* p, float a,
                                                 float b) {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a,
-                                                float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
   }
 };
 
@@ -345,26 +325,21 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// o (B,T,H,hd) from q (B,T,H,hd) and k, v (B,T,KV,hd), all contiguous and
-// of one type: bf16 != 0 for bfloat16, 0 for float32.  window 0 is full
-// causal attention.  One launch on `stream`.  Returns a cudaError_t code.
+// o (B,T,H,hd) from q (B,T,H,hd) and k, v (B,T,KV,hd), all float32 and
+// contiguous.  window 0 is full causal attention.  One launch on
+// `stream`.  Returns a cudaError_t code.
 int viem_flash_attention(const void* q, const void* k, const void* v,
                          void* o, int batch, int seq, int heads,
                          int kv_heads, int head_dim, int window, float scale,
-                         int bf16, void* stream) {
+                         void* stream) {
   if (batch < 0 || seq < 0 || heads <= 0 || kv_heads <= 0 ||
       heads % kv_heads != 0 || window < 0 || heads > 65535 ||
       batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || seq == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? viem::dispatch<__nv_bfloat16>(q, k, v, o, batch, seq, heads,
-                                           kv_heads, head_dim, window, scale,
-                                           s)
-           : viem::dispatch<float>(q, k, v, o, batch, seq, heads, kv_heads,
-                                   head_dim, window, scale, s);
-  return static_cast<int>(err);
+  return static_cast<int>(viem::dispatch<float>(
+      q, k, v, o, batch, seq, heads, kv_heads, head_dim, window, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* viem_error_string(int code) {

@@ -12,9 +12,11 @@
                   never select for refinement (``Mapper.gain_matrix`` and
                   ``ops.gain_matrix`` reach it) and it is not in
                   ``__all__``
-  flash_attention — K4: causal / sliding-window GQA attention forward
-                  (``csrc/flash_attention.cu``), replacing
-                  ``flash_attention_kernel``; the LM path's attention core
+  flash_attention — K4: causal / sliding-window GQA attention forward,
+                  replacing ``flash_attention_kernel``; the LM path's
+                  attention core.  Two routes by dtype: bfloat16 through
+                  ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), float32
+                  through ``csrc/flash_attention.cu``
   ops           — device wrappers (``gain_matrix``, ``objective``) and
                   their ``*_ref`` twins
   ref           — plain PyTorch oracles of the kernels
@@ -30,7 +32,8 @@ loaded at import.
 
 from . import ops, pad, ref
 from .config import KernelConfig, derive_kernel_config, quantize_table
-from .flash_attention import FLASH_KERNEL, flash_attention_kernel
+from .flash_attention import (FLASH_F32_KERNEL, FLASH_KERNEL,
+                              flash_attention_kernel)
 from .pair_gain import (PAIR_GAIN_KERNEL, edge_objective, pair_gains,
                         pair_gains_plain)
 from .qap_objective import (OBJECTIVE_KERNEL, qap_objective_edges,
@@ -38,11 +41,14 @@ from .qap_objective import (OBJECTIVE_KERNEL, qap_objective_edges,
 from .swap_gain import SWAP_GAIN_KERNEL, swap_gain_matrix  # noqa: F401
 
 __all__ = ["ops", "pad", "ref", "KernelConfig", "derive_kernel_config",
-           "quantize_table", "FLASH_KERNEL", "flash_attention_kernel",
+           "quantize_table", "FLASH_KERNEL", "FLASH_F32_KERNEL",
+           "flash_attention_kernel",
            "PAIR_GAIN_KERNEL", "edge_objective", "pair_gains", "pair_gains_plain", "OBJECTIVE_KERNEL",
            "qap_objective_edges", "qap_objective_plain", "KERNELS"]
 
-# every hand-written kernel of the port, by name
+# every hand-written kernel of the port, by name; K4 has one entry per
+# route, so a run shows which route each path took
 KERNELS = {"qap_objective": OBJECTIVE_KERNEL, "pair_gains": PAIR_GAIN_KERNEL,
            "swap_gain_matrix": SWAP_GAIN_KERNEL,
-           "flash_attention": FLASH_KERNEL}
+           "flash_attention": FLASH_KERNEL,
+           "flash_attention_f32": FLASH_F32_KERNEL}

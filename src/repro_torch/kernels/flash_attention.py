@@ -3,39 +3,53 @@ plain twin.
 
 :func:`flash_attention_kernel` is the wrapper, with the JAX package's
 layouts (q (B, T, H, hd); k, v (B, T, KV, hd), self-attention positions
-0..T−1; returns (B, T, H, hd) in q's type): on CUDA tensors it launches
-the hand-written kernel ``csrc/flash_attention.cu`` (which replaces
+0..T−1; returns (B, T, H, hd) in q's type).  On CUDA tensors it takes
+one of two hand-written kernels by dtype, both replacing
 ``flash_attention_kernel`` of the JAX package's
-``kernels/flash_attention.py``), on CPU tensors it runs the plain
-PyTorch version :func:`~repro_torch.kernels.ref.flash_attention_plain`.
-Both compute ``_flash_kernel``'s function: scores in float32, masked
-scores −1e30, an online softmax in float32, p cast to v's type before
-p·v.  The TPU wrapper's ``q_block``/``kv_block``/``interpret`` arguments
-have no counterpart: the kernel's tiles are fixed (64 rows) and masked
-at the ragged edge.
+``kernels/flash_attention.py``:
+
+  bfloat16 — ``csrc/flash_attention_sm90.cu`` (:data:`FLASH_KERNEL`):
+             ``wgmma`` on bf16 tiles fed by TMA through an mbarrier ring,
+             128-row q and kv tiles, exp2 with log2 e folded into the
+             scale;
+  float32  — ``csrc/flash_attention.cu`` (:data:`FLASH_F32_KERNEL`): the
+             CUDA cores at full float32, 64-row tiles.
+
+On CPU tensors it runs the plain PyTorch version
+:func:`~repro_torch.kernels.ref.flash_attention_plain`.  All compute
+``_flash_kernel``'s function: scores in float32, masked scores −1e30, an
+online softmax in float32, p cast to v's type before p·v.  The TPU
+wrapper's ``q_block``/``kv_block``/``interpret`` arguments have no
+counterpart: the kernels' tiles are fixed and masked at the ragged edge.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 from .cuda import CudaKernel
 from .ref import flash_attention_plain
 
-__all__ = ["FLASH_KERNEL", "FLASH_TILE", "HEAD_DIMS",
-           "flash_attention_kernel", "flash_attention_plain"]
+__all__ = ["FLASH_F32_KERNEL", "FLASH_KERNEL", "FLASH_SM90_TILES",
+           "FLASH_TILE", "HEAD_DIMS", "LOG2E", "flash_attention_kernel",
+           "flash_attention_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# both entries: q, k, v, o; batch, seq, heads, kv_heads, head_dim; window,
+# scale (hd^-½·log2 e for bfloat16, hd^-½ for float32); stream
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 
-FLASH_KERNEL = CudaKernel(
-    "flash_attention", "flash_attention", "viem_flash_attention",
-    [_P, _P, _P, _P,            # q, k, v, o
-     _I, _I, _I, _I, _I,        # batch, seq, heads, kv_heads, head_dim
-     _I, ctypes.c_float, _I,    # window, scale, bf16
-     _P])                       # stream
+FLASH_KERNEL = CudaKernel(          # bfloat16
+    "flash_attention", "flash_attention_sm90", "viem_flash_attention_sm90",
+    _ARGS)
+FLASH_F32_KERNEL = CudaKernel(      # float32
+    "flash_attention_f32", "flash_attention", "viem_flash_attention", _ARGS)
 
-HEAD_DIMS = (32, 64, 96, 128)   # the kernel's instantiations
-FLASH_TILE = 64                 # q rows and kv rows of a tile (kTile)
+HEAD_DIMS = (32, 64, 96, 128)   # both kernels' head dims
+FLASH_TILE = 64                 # q rows and kv rows of a float32 tile
+FLASH_SM90_TILES = (128, 128)   # q rows and kv rows of a bf16 tile
+LOG2E = math.log2(math.e)       # folded into the bf16 kernel's scale
 
 
 def _check(q, k, v, window):
@@ -60,11 +74,12 @@ def _check(q, k, v, window):
 
 def flash_attention_kernel(q, k, v, *, window: int = 0):
     """Causal attention of q over k, v (sliding-window when ``window`` >
-    0): K4 for CUDA tensors, the plain version for CPU tensors."""
+    0): K4 for CUDA tensors (bfloat16 through the sm90 kernel, float32
+    through the float32 one), the plain version for CPU tensors."""
+    import torch
     _check(q, k, v, window)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, window=window)
-    import torch
     b, t, h, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_kernel: head_dim {hd} is not one "
@@ -80,11 +95,14 @@ def flash_attention_kernel(q, k, v, *, window: int = 0):
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention_kernel: {key} is not 16-byte "
                              f"aligned")
+    if q.dtype == torch.bfloat16:
+        kernel, scale = FLASH_KERNEL, hd ** -0.5 * LOG2E
+    else:
+        kernel, scale = FLASH_F32_KERNEL, hd ** -0.5
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        FLASH_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), b, t, h, int(k.shape[2]), hd,
-                            int(window), hd ** -0.5,
-                            int(q.dtype == torch.bfloat16), stream)
+        kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      b, t, h, int(k.shape[2]), hd, int(window), scale,
+                      stream)
     return o

@@ -15,9 +15,11 @@ kernel and the plain version add the same float32 terms in different
 orders: K1 agrees to rtol 1e-6 of Σ|w·d|, K2 to rtol 1e-6 of each pair's
 Σ|w|·(|d_a| + |d_b|), and K3 (the dense gain matrix, four float32 dot
 products of length n per entry) to n·2⁻²²·max(|C|·|B|ᵀ).  K4 (flash
-attention) is held to 2e-5 at float32, and at bfloat16 to a limit per
-element and a limit on the mean |difference| from
-``kernels.ref.flash_bf16_limits`` (``_assert_flash_close``).
+attention) is held to 2e-5 at float32 (its float32 route,
+``csrc/flash_attention.cu``), and at bfloat16 (its sm90 route,
+``csrc/flash_attention_sm90.cu``) to a limit per element and a limit on
+the mean |difference| from ``kernels.ref.flash_bf16_limits``
+(``_assert_flash_close``).
 """
 
 import numpy as np
@@ -27,7 +29,8 @@ import torch
 import repro_torch.core as tc
 from repro_torch.core.local_search import communication_pairs
 from repro_torch.engine import RefinementEngine
-from repro_torch.kernels import (FLASH_KERNEL, OBJECTIVE_KERNEL,
+from repro_torch.kernels import (FLASH_F32_KERNEL, FLASH_KERNEL,
+                                 OBJECTIVE_KERNEL,
                                  PAIR_GAIN_KERNEL, SWAP_GAIN_KERNEL,
                                  flash_attention_kernel, pair_gains,
                                  pair_gains_plain, qap_objective_edges,
@@ -248,8 +251,15 @@ def test_swap_gain_wrapper_rejects_mixed_devices(cuda):
 
 
 # ------------------------------------------------------------------ K4
-# (H, KV, hd): G = H / KV of 1, 3, 4 and 9 over the kernel's four head dims
+# (H, KV, hd): G = H / KV of 1, 3, 4 and 9 over the kernels' four head dims
 FLASH_HEADS = [(4, 4, 64), (6, 2, 96), (8, 2, 128), (9, 1, 32)]
+# K4's route for each dtype, and the other one
+FLASH_ROUTES = {torch.bfloat16: (FLASH_KERNEL, FLASH_F32_KERNEL),
+                torch.float32: (FLASH_F32_KERNEL, FLASH_KERNEL)}
+
+
+def _flash_launches():
+    return FLASH_KERNEL.launches, FLASH_F32_KERNEL.launches
 
 
 def _assert_flash_close(got, q, k, v, window):
@@ -277,9 +287,11 @@ def test_flash_kernel_equals_plain(cuda, h, kv, hd, window, dtype):
     gen = torch.Generator(device=cuda).manual_seed(h * 1000 + window)
     q, k, v = (torch.randn((b, t, n, hd), generator=gen, device=cuda)
                .to(dtype) for n in (h, kv, kv))
-    before = FLASH_KERNEL.launches
+    route, other = FLASH_ROUTES[dtype]
+    before, before_other = route.launches, other.launches
     got = flash_attention_kernel(q, k, v, window=window)
-    assert FLASH_KERNEL.launches == before + 1
+    assert route.launches == before + 1
+    assert other.launches == before_other
     assert got.shape == q.shape and got.dtype == dtype
     assert bool(torch.isfinite(got).all())
     _assert_flash_close(got, q, k, v, window)
@@ -298,6 +310,23 @@ def test_flash_kernel_rounds_p_as_plain_in_one_tile(cuda, h, kv, hd, window):
                .to(torch.bfloat16) for n in (h, kv, kv))
     _assert_flash_close(flash_attention_kernel(q, k, v, window=window),
                         q, k, v, window)
+
+
+@pytest.mark.parametrize("t,window", [(1, 0), (127, 0), (128, 0),
+                                      (129, 0), (4500, 4096)])
+@pytest.mark.parametrize("h,kv,hd", FLASH_HEADS)
+def test_flash_sm90_ragged_against_its_tiles(cuda, h, kv, hd, t, window):
+    """bfloat16 at T ragged against the sm90 kernel's 128-row q and kv
+    tiles (and T = 1), through that kernel alone."""
+    gen = torch.Generator(device=cuda).manual_seed(h * 10 + t)
+    q, k, v = (torch.randn((1, t, n, hd), generator=gen, device=cuda)
+               .to(torch.bfloat16) for n in (h, kv, kv))
+    before = _flash_launches()
+    got = flash_attention_kernel(q, k, v, window=window)
+    assert _flash_launches() == (before[0] + 1, before[1])
+    assert bool(torch.isfinite(got).all())
+    _assert_flash_close(got, q, k, v, window)
+    assert torch.equal(got, flash_attention_kernel(q, k, v, window=window))
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -329,10 +358,12 @@ def test_prefill_on_card_equals_cpu(cuda, dtype):
     params = init_params(0, cfg, device="cpu")
     toks = make_prompts(cfg, 2, 96, 0, "cpu")
     want, caches_cpu = prefill_with_cache(params, toks, cfg, 100)
-    before = FLASH_KERNEL.launches
+    route, other = FLASH_ROUTES[cfg.torch_dtype]
+    before, before_other = route.launches, other.launches
     got, caches = prefill_with_cache(params.to(cuda), toks.to(cuda), cfg,
                                      100)
-    assert FLASH_KERNEL.launches == before + cfg.n_layers
+    assert route.launches == before + cfg.n_layers
+    assert other.launches == before_other
     diff = (got.cpu().float() - want.float())[..., :cfg.vocab_size].abs()
     if dtype == "float32":
         assert float(diff.max()) <= 1e-4
@@ -344,9 +375,10 @@ def test_prefill_on_card_equals_cpu(cuda, dtype):
 def test_serve_on_card_makes_no_decode_sync(cuda):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import serve
-    before = FLASH_KERNEL.launches
+    before = _flash_launches()
     out = serve("granite-3-8b", batch=2, prompt_len=100, gen=8, smoke=True)
-    cfg = get_smoke_config("granite-3-8b")
-    assert FLASH_KERNEL.launches == before + cfg.n_layers   # one prefill
+    cfg = get_smoke_config("granite-3-8b")               # bfloat16
+    # one prefill, through the sm90 route
+    assert _flash_launches() == (before[0] + cfg.n_layers, before[1])
     assert out["decode_syncs"] == 0
     assert out["tokens"].shape == (2, 8) and out["tokens"].is_cuda

@@ -13,9 +13,11 @@ tensors) against the JAX package's flash attention, on the CPU.
     skips, against the dense oracle of ``tests/test_flash_kernel.py``.
   * The bfloat16 limits K4 is held to on the card
     (``flash_bf16_limits``): K4's algorithm written in torch ops
-    (``tiled_flash``: 64-row tiles, online softmax, p rounded at the
-    running max) stays within them, and the faults they are meant to
-    catch do not.
+    (``tiled_flash``: online softmax, p rounded at the running max) stays
+    within them, and the faults they are meant to catch do not, at two
+    tilings: 64-row tiles with exp (the float32 route's order) and the
+    sm90 kernel's 128-row q and kv tiles with exp2 and log2 e folded
+    into the scale.
 """
 
 import jax.numpy as jnp
@@ -29,7 +31,8 @@ from repro.kernels.flash_attention import flash_attention_kernel as pallas
 from repro.models.attention import flash_attention as jax_flash
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import FLASH_KERNEL, flash_attention_kernel
-from repro_torch.kernels.flash_attention import FLASH_TILE
+from repro_torch.kernels.flash_attention import (FLASH_SM90_TILES,
+                                                FLASH_TILE, LOG2E)
 from repro_torch.kernels.ref import flash_attention_plain, flash_bf16_limits
 from repro_torch.models.attention import flash_attention
 
@@ -118,11 +121,19 @@ def test_wrapper_rejects_mixed_types_and_negative_window():
 
 
 # ------------------------------------------------ the bfloat16 limits
-def tiled_flash(q, k, v, window=0, fault=None):
-    """K4's algorithm in torch ops: 64-row q tiles over the 64-row kv
-    tiles up to the diagonal, online softmax in float32, p rounded to
-    v's type at the running max.  ``fault`` plants one of the errors
-    the limits must catch."""
+def tiled_flash(q, k, v, window=0, fault=None, tiles=(FLASH_TILE,
+                                                       FLASH_TILE),
+                exp2=False):
+    """K4's algorithm in torch ops: ``tiles`` = (q rows, kv rows) tiles,
+    each q tile over the kv tiles up to the diagonal, online softmax in
+    float32, p rounded to v's type at the running max; with ``exp2``,
+    exp2 of scores scaled by hd^-½·log2 e, as the sm90 kernel computes.
+    It visits every kv tile up to the diagonal, which the kernels' tile
+    skipping gives exactly (the argument in their sources).  ``fault``
+    plants one of the errors the limits must catch."""
+    tq, tk = tiles
+    scale = q.shape[3] ** -0.5 * (LOG2E if exp2 else 1.0)
+    exp = torch.exp2 if exp2 else torch.exp
     b, t, h, hd = q.shape
     kvh = k.shape[2]
     g, f32 = h // kvh, torch.float32
@@ -131,26 +142,26 @@ def tiled_flash(q, k, v, window=0, fault=None):
     vg = v.permute(0, 2, 1, 3).to(f32)
     out = torch.empty((b, kvh, g, t, hd), dtype=q.dtype)
     pos = torch.arange(t)
-    for q0 in range(0, t, FLASH_TILE):
-        q1 = min(q0 + FLASH_TILE, t)
+    for q0 in range(0, t, tq):
+        q1 = min(q0 + tq, t)
         m = torch.full((b, kvh, g, q1 - q0), -1e30)
         l = torch.zeros_like(m)
         acc = torch.zeros((b, kvh, g, q1 - q0, hd))
-        for k0 in range(0, q1, FLASH_TILE):
-            k1 = min(k0 + FLASH_TILE, t)
+        for k0 in range(0, q1, tk):
+            k1 = min(k0 + tk, t)
             s = torch.einsum("bkgqd,bksd->bkgqs", qg[:, :, :, q0:q1],
-                             kg[:, :, k0:k1]) * hd ** -0.5
+                             kg[:, :, k0:k1]) * scale
             diff = pos[q0:q1, None] - pos[None, k0:k1]
             mask = diff >= (-1 if fault == "future_key" else 0)
             if window:
                 mask &= (diff <= window if fault == "window_off_by_one"
                          else diff < window)
             if fault == "half_diagonal_tile" and k0 == q0:
-                mask &= pos[q0:q1, None] < q0 + FLASH_TILE // 2
+                mask &= pos[q0:q1, None] < q0 + tq // 2
             s = torch.where(mask, s, -1e30)
             m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
+            p = exp(s - m_new[..., None])
+            corr = exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
             if fault != "unrounded_p":
                 p = p.to(v.dtype).to(f32)
@@ -191,26 +202,57 @@ def test_spread_is_the_rounding_error_scale():
                           atol=1e-7)
 
 
-@pytest.mark.parametrize("b,t,h,kv,hd,win", [
+# the tilings tiled_flash runs: (tiles, exp2), by route
+K4_ORDERS = {"f32": ((FLASH_TILE, FLASH_TILE), False),
+             "sm90": (FLASH_SM90_TILES, True)}
+ADMIT = [
     (1, 1024, 4, 1, 128, 0),        # serve-like: many kv tiles per row
     (1, 700, 4, 2, 64, 256),        # a window, ragged T
     (2, 64, 8, 2, 96, 16),          # one kv tile: the tight mean limit
-])
-def test_bf16_limits_admit_k4_rounding_order(b, t, h, kv, hd, win):
+]
+
+
+def _case(values, order):
+    name = "-".join(map(str, values))
+    return pytest.param(*values, order,
+                        id=name if order == "f32" else f"{order}-{name}")
+
+
+@pytest.mark.parametrize("b,t,h,kv,hd,win,order",
+                         [_case(c, o) for o in K4_ORDERS for c in ADMIT])
+def test_bf16_limits_admit_k4_rounding_order(b, t, h, kv, hd, win, order):
+    tiles, exp2 = K4_ORDERS[order]
     q, k, v = _bf16_qkv(b, t, h, kv, hd, t + win)
-    worst, mean_share = _within_limits(tiled_flash(q, k, v, win), q, k, v,
-                                       win)
+    got = tiled_flash(q, k, v, win, tiles=tiles, exp2=exp2)
+    worst, mean_share = _within_limits(got, q, k, v, win)
     assert worst <= 0.6 and mean_share <= 0.6, (worst, mean_share)
 
 
-@pytest.mark.parametrize("fault,t,win", [
-    ("future_key", 700, 0),
-    ("window_off_by_one", 700, 256),
-    ("half_diagonal_tile", 700, 0),
-    ("unrounded_p", 64, 0),
-])
-def test_bf16_limits_catch_faults(fault, t, win):
+# each fault at each tiling: a future key, a window off by one, the
+# second half of a q tile's rows losing the diagonal tile (the second
+# consumer warpgroup's, at the sm90 tiling), and p left unrounded where
+# one kv tile holds every key (T = 64)
+FAULTS = [("future_key", 700, 0), ("window_off_by_one", 700, 256),
+          ("half_diagonal_tile", 700, 0), ("unrounded_p", 64, 0)]
+
+
+@pytest.mark.parametrize("fault,t,win,order",
+                         [_case(c, o) for o in K4_ORDERS for c in FAULTS])
+def test_bf16_limits_catch_faults(fault, t, win, order):
+    tiles, exp2 = K4_ORDERS[order]
     q, k, v = _bf16_qkv(1, t, 4, 2, 64, 7)
-    worst, mean_share = _within_limits(tiled_flash(q, k, v, win, fault),
-                                       q, k, v, win)
+    got = tiled_flash(q, k, v, win, fault, tiles=tiles, exp2=exp2)
+    worst, mean_share = _within_limits(got, q, k, v, win)
     assert worst > 1.0 or mean_share > 1.0, (worst, mean_share)
+
+
+def test_sm90_order_equals_dense_at_float32():
+    """At float32 (no rounding of p) the sm90 tiling with exp2 is the
+    dense attention of the JAX package's oracle, across a window that
+    empties whole leading 128-row tiles and a ragged T."""
+    t, win = 600, 100
+    (qj, kj, vj), (qt, kt, vt) = _qkv(1, t, 4, 2, 64, 3)
+    got = tiled_flash(qt, kt, vt, win, tiles=FLASH_SM90_TILES, exp2=True)
+    assert _err(got, ref_attn(qj, kj, vj, win)) < 2e-5
+    got = tiled_flash(qt, kt, vt, 0, tiles=FLASH_SM90_TILES, exp2=True)
+    assert _err(got, ref_attn(qj, kj, vj, 0)) < 2e-5
