@@ -32,12 +32,22 @@ one JSON line after each, failing loudly on the first fault:
               the launch counts set to 0 just before and read just
               after: G must equal the plain version on the card, the
               host float64 ``dense_gain_matrix`` and K2's sparse gains at
-              the main map's candidate pairs exactly, be symmetric with a
-              zero diagonal; a ragged real-valued n = 1000 instance stays
-              within the float32 dot-product bound n·2⁻²²·max(|C|·|B|ᵀ)
-              of the plain version.  Times K3 beside its plain version,
-              cuBLAS's ``torch.mm(C, B.T)`` (one of its two products) and
-              its bound, and splits the call's wall time.
+              the main map's candidate pairs exactly, be bit-symmetric
+              with a zero diagonal; the integer-edge cell (the same graph
+              with seeded integer weights in [2¹¹, 2¹⁴), beyond the
+              exactness contract's condition) must equal the host
+              float64 G exactly; a ragged real-valued n = 1000
+              instance stays within n·2⁻²²·max(|C|·|B|ᵀ) of the plain
+              version and within 2⁻¹⁸·S(u,v) of the float64 G at every
+              entry (``kernels.ref.swap_gain_limits``), bit-symmetric.
+              Times K3 (3xTF32 ``wgmma``) beside its plain version,
+              cuBLAS's ``torch.mm(C, B.T)`` (the one 2n³ product, TF32
+              off) and its bound (2n³ at the TF32 tensor-core peak), and
+              splits the call's wall time, with the readback of G
+              through page-locked memory (what the call does) beside the
+              pageable ``.cpu()``, and the warm call (least, median and
+              largest of 5) with each result dropped and with the
+              previous one held.
 7. flash    — holds K4 (flash attention) against its plain version on
               the card at the serve shape (B 4, T 2048, H 32, KV 8, hd
               128, bf16) and at starcoder2-7b's windowed shape (B 1, T
@@ -86,10 +96,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
-# outside the tensor cores (K1-K3's arithmetic is scalar fp32/int32), and
-# bf16 on the tensor cores (the least time for K4's bf16 attention)
+# outside the tensor cores (K1 and K2's arithmetic is scalar fp32/int32),
+# TF32 on the tensor cores (the least time for K3's 2n³; its 3xTF32 split
+# issues three times that) and bf16 on the tensor cores (the least time
+# for K4's bf16 attention)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 ITERS = 100
 
@@ -159,7 +172,46 @@ def phase_build():
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
     emit({"phase": "build", "seconds": secs,
           "libraries": [str(library_path(n).relative_to(ROOT))
-                        for n in reports]})
+                        for n in reports],
+          "swap_gain": dict(ptxas_usage(reports["swap_gain"]),
+                            gain_tile_dynamic_smem=swap_gain_smem())})
+
+
+def ptxas_usage(report: str) -> dict:
+    """{entry name: {registers, spill_stores, spill_loads, static_smem}}
+    from an ``-Xptxas -v`` report ({} for a library that was already
+    built); the names are the report's own (mangled)."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def swap_gain_smem() -> int:
+    """Bytes of dynamic shared memory one K3 tile block asks for."""
+    import ctypes
+
+    from repro_torch.kernels.swap_gain import SWAP_GAIN_KERNEL
+    fn = SWAP_GAIN_KERNEL.library().viem_swap_gain_smem
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 # ------------------------------------------------------------ timing
@@ -461,18 +513,50 @@ def ragged_instance(n: int, seed: int, density: float = 0.3):
     return C, D, rng.permutation(n)
 
 
+def warm_calls(call, reps: int = 5, hold: bool = False) -> dict:
+    """Host seconds of ``reps`` calls: their least, median and largest,
+    and each one, with the page-locked blocks the caching host allocator
+    made and freed and the gen-2 garbage collections during each call.
+    Each result is dropped before the next call starts, unless ``hold``,
+    when the caller keeps the previous result while the next call runs."""
+    import gc
+    import statistics
+
+    import torch
+
+    def counts():
+        h = torch.cuda.host_memory_stats()
+        return (h.get("num_host_alloc", 0), h.get("num_host_free", 0),
+                gc.get_stats()[2]["collections"])
+    secs, events, kept = [], [], None
+    for _ in range(reps):
+        before = counts()
+        out, s = _host_s(call)
+        secs.append(s)
+        events.append([b - a for a, b in zip(before, counts())])
+        kept = out if hold else None
+        del out
+    del kept
+    return {"min": min(secs), "median": statistics.median(secs),
+            "max": max(secs), "calls": secs,
+            "host_allocs_frees_gc2": events}
+
+
 def phase_gain(topo, g, perm, pairs, forms):
     """``Mapper.gain_matrix`` on the main map's graph, machine and final
     permutation through K3, held against the plain version, the host
-    float64 formula and K2; then the ragged real-valued case and the
-    times."""
+    float64 formula and K2; then the integer-edge cell, the ragged
+    real-valued case, the times and the call's split."""
     import numpy as np
     import torch
 
     from repro_torch.core import (DeviceGraph, Mapper, MappingSpec,
-                                  dense_gain_matrix, device_pairs)
+                                  dense_gain_matrix, device_pairs,
+                                  from_edges)
     from repro_torch.kernels import pair_gains
+    from repro_torch.core.plan import read_back
     from repro_torch.kernels.ops import comm_matrix, permuted_distances
+    from repro_torch.kernels.ref import SWAP_GAIN_REL, swap_gain_limits
     from repro_torch.kernels.swap_gain import (swap_gain_matrix,
                                                swap_gain_matrix_plain)
     dev = torch.device(DEVICE)
@@ -483,7 +567,9 @@ def phase_gain(topo, g, perm, pairs, forms):
     G, cold_s = _host_s(lambda: mapper.gain_matrix(g, perm))
     launches = read_launches()
     check_launched(launches, GAIN_KERNELS, "gain")
-    _, warm_s = _host_s(lambda: mapper.gain_matrix(g, perm))
+    check(launches["swap_gain_matrix"] == 1,
+          f"gain: K3 launched {launches['swap_gain_matrix']} times, "
+          f"expected once")
     check(G.shape == (n, n) and G.dtype == np.float32,
           f"gain: G is {G.shape} {G.dtype}")
     check(bool(np.all(np.isfinite(G))), "gain: G has non-finite entries")
@@ -495,7 +581,10 @@ def phase_gain(topo, g, perm, pairs, forms):
     C, scatter_s = _host_s(lambda: comm_matrix(g, dev))
     B, gather_s = _host_s(lambda: permuted_distances(D, perm))
     Gd = swap_gain_matrix(C, B)
-    _, readback_s = _host_s(lambda: Gd.cpu())
+    # the call's page-locked readback, and the pageable ``.cpu()`` it
+    # replaced as the yardstick; each twice, results dropped between
+    readback = {"page_locked": warm_calls(lambda: read_back(Gd), reps=2),
+                "pageable": warm_calls(lambda: Gd.cpu().numpy(), reps=2)}
     plain = swap_gain_matrix_plain(C, B).cpu().numpy()
     check(np.array_equal(G, plain), "gain: K3 != plain version on the card "
           f"(max {float(np.max(np.abs(G - plain)))})")
@@ -518,8 +607,42 @@ def phase_gain(topo, g, perm, pairs, forms):
     check(np.array_equal(dense, sparse),
           "gain: G at the candidate pairs != K2 pair_gains (max "
           f"{float(np.max(np.abs(dense - sparse)))})")
+    del G_host
 
-    # ragged, real-valued: within the float32 dot-product error bound
+    # the integer-edge cell: the same graph, machine and permutation with
+    # seeded integer weights in [2¹¹, 2¹⁴) (more significant bits than
+    # TF32 keeps, so only the 3xTF32 split holds them).  It lies beyond
+    # the contract's condition (S(u,v) reaches past 2²⁴ here, counted in
+    # ``entries_scale_at_least_2^24``), so its exactness is this data's,
+    # not the contract's: the card tests' "edge" instances hold the
+    # contract itself.
+    u, v, _ = g.edge_list()
+    w_int = np.random.default_rng(0).integers(2 ** 11, 2 ** 14, len(u))
+    g_int = from_edges(n, u, v, w_int.astype(np.float64))
+    reset_launches()
+    Ge = mapper.gain_matrix(g_int, perm)
+    edge_launches = read_launches()["swap_gain_matrix"]
+    check(edge_launches == 1, f"gain: integer-edge K3 launched "
+          f"{edge_launches} times, expected once")
+    Ce = comm_matrix(g_int, dev)
+    scale = swap_gain_limits(Ce, B) / SWAP_GAIN_REL
+    edge = {"n": n, "launches": edge_launches,
+            "max_scale_over_2^24": float(scale.max()) / 2.0 ** 24,
+            "entries_scale_at_least_2^24": int((scale >= 2.0 ** 24).sum())}
+    del scale
+    Ge_host = dense_gain_matrix(g_int.to_dense(), topo.matrix(), perm)
+    check(np.array_equal(Ge.astype(np.float64), Ge_host),
+          "gain: integer-edge K3 != host float64 dense_gain_matrix (max "
+          f"{float(np.max(np.abs(Ge - Ge_host)))}, at "
+          f"{int(np.sum(Ge != Ge_host))} entries)")
+    check(np.array_equal(Ge, swap_gain_matrix_plain(Ce, B).cpu().numpy()),
+          "gain: integer-edge K3 != plain version on the card")
+    check(np.array_equal(Ge, Ge.T), "gain: integer-edge G not symmetric")
+    edge["equals_host_float64"] = True
+    del Ge, Ge_host, Ce
+
+    # ragged, real-valued: within the float32 dot-product bound of the
+    # plain version and the per-element limit of the float64 G
     nr = 1000
     Cr, Dr, pr = ragged_instance(nr, nr)
     Crt = torch.from_numpy(Cr.astype(np.float32)).to(dev)
@@ -530,29 +653,64 @@ def phase_gain(topo, g, perm, pairs, forms):
     real_tol = nr * 2.0 ** -22 * float(torch.max(Crt.abs() @ Brt.abs().T))
     check(real_err <= real_tol, f"gain: ragged real n = {nr}: max |K3 - "
           f"plain| = {real_err} > {real_tol}")
+    exact = torch.from_numpy(dense_gain_matrix(
+        Cr.astype(np.float32).astype(np.float64),
+        Dr.astype(np.float32).astype(np.float64), pr)).to(dev)
+    limit = swap_gain_limits(Crt, Brt)
+    share = float(((got.double() - exact).abs() / limit).max())
+    plain_share = float(((want.double() - exact).abs() / limit).max())
+    check(share <= 1.0, f"gain: ragged real n = {nr}: |K3 - float64| "
+          f"beyond 2^-18 S(u,v) by {share}x")
+    check(torch.equal(got, got.T), f"gain: ragged real n = {nr}: G is not "
+          f"bit-symmetric")
+    check(torch.equal(got, swap_gain_matrix(Crt, Brt)),
+          f"gain: ragged real n = {nr}: two launches differ")
 
     ms = cuda_ms(lambda: swap_gain_matrix(C, B), iters=20, warmup=2)
-    kernel_s = ms / 1e3
     plain_ms = cuda_ms(lambda: swap_gain_matrix_plain(C, B), iters=20,
                        warmup=2)
     library_ms = cuda_ms(lambda: torch.mm(C, B.T), iters=20, warmup=2)
-    # bytes: C and B read once, G written once; operations: the least
-    # work for G is one n×n×n product (M[v,u] = Mᵀ[u,v]), 2n³
-    bound_ms, bound_by = bound(nbytes(C, B) + n * n * 4, 2.0 * n ** 3)
+    ms_again = cuda_ms(lambda: swap_gain_matrix(C, B), iters=20, warmup=2)
+    # bytes: C and B read once, G written once; operations: one n×n×n
+    # product (2n³) on the tensor cores at their TF32 peak.  Beside it,
+    # two design figures: the three TF32 products of the 3xTF32 split
+    # (3·2n³) on the tensor cores, and 2n³ on the fp32 CUDA cores
+    useful = 2.0 * n ** 3
+    moved = nbytes(C, B) + n * n * 4
+    bound_ms, bound_by = bound(moved, useful, PEAK_TF32)
+    bound_3xtf32_ms, _ = bound(moved, 3.0 * useful, PEAK_TF32)
+    bound_fp32_ms, _ = bound(moved, useful)
     rec = {"max_abs_err": max(float(np.max(np.abs(G - plain))), real_err),
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
+    del Gd, plain
+
+    # the warm call, 5 times with each result dropped before the next
+    # call, and 5 times with the caller holding the previous result
+    del G
+    call = lambda: mapper.gain_matrix(g, perm)  # noqa: E731
     emit({"phase": "gain", "n": n, "launches": launches,
-          "call_seconds_cold": cold_s, "call_seconds_warm": warm_s,
+          "call_seconds_cold": cold_s,
+          "warm_call_seconds": warm_calls(call),
+          "warm_call_seconds_holding_previous": warm_calls(call, hold=True),
           "split_seconds": {"scatter_C": scatter_s, "gather_B": gather_s,
-                            "kernel": kernel_s, "readback": readback_s},
+                            "kernel": ms / 1e3, "readback": readback},
           "equals_plain": True, "equals_host_float64": True,
+          "bit_symmetric": True,
           "equals_pair_gains_at_pairs": len(pairs),
           "positive_pairs": int(np.sum(dense > 0)),
+          "integer_edge": edge,
           "ragged_real": {"n": nr, "max_abs_err": real_err,
-                          "tol": real_tol},
-          "library_call": "torch.mm(C, B.T): one of K3's two products",
+                          "tol": real_tol,
+                          "max_share_of_element_limit": share,
+                          "plain_max_share_of_element_limit": plain_share},
+          "library_call": "torch.mm(C, B.T), TF32 off: the one 2n³ product",
           "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "tflops_of_2n3": useful / (ms * 1e-3) / 1e12,
+          "share_of_bound": bound_ms / ms, "ms_again": ms_again,
+          "bound_3xtf32_ms": bound_3xtf32_ms,
+          "share_of_3xtf32_bound": bound_3xtf32_ms / ms,
+          "bound_fp32_cuda_cores_ms": bound_fp32_ms,
           "kernel": rec})
     return rec, launches
 

@@ -203,7 +203,10 @@ class Mapper:
                     spec: MappingSpec | None = None):
         """Full pair-exchange gain matrix via the spec's backend (dense —
         small/medium n): the K3 kernel on the session's device
-        (``pallas``) or the host float64 formula (``numpy``)."""
+        (``pallas``) or the host float64 formula (``numpy``).  From the
+        card the (n, n) float32 array is a view of page-locked host
+        memory, n²·4 bytes rounded up to a power of two, pinned while the
+        caller holds it (``core/plan.py:read_back``)."""
         spec = self.spec if spec is None else spec.validate()
         return self._eval_plan(spec).gain_matrix(g, perm)
 

@@ -6,12 +6,13 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["flash_attention_plain", "flash_bf16_limits",
+__all__ = ["SWAP_GAIN_REL", "flash_attention_plain", "flash_bf16_limits",
            "hier_distance_ref", "qap_objective_edges_ref",
-           "swap_gain_matrix_ref"]
+           "swap_gain_limits", "swap_gain_matrix_ref"]
 
 NEG_INF = -1e30
 FLASH_PLAIN_ROWS = 256          # query rows per block of the plain version
+SWAP_GAIN_REL = 2.0 ** -18      # K3's limit per unit of swap_gain_limits' S
 
 
 def swap_gain_matrix_ref(C, B):
@@ -25,6 +26,30 @@ def swap_gain_matrix_ref(C, B):
     G = d[:, None] + d[None, :] - M - M.T - 2.0 * C * B
     n = C.shape[0]
     return G * (1.0 - torch.eye(n, dtype=torch.float32, device=C.device))
+
+
+def swap_gain_limits(C, B):
+    """The per-element limit K3 is held to on real data: |G − G_exact|
+    ≤ 2⁻¹⁸·S(u,v), returned as a float64 (n, n) tensor on C's device,
+    with A = |C|·|B|ᵀ and
+
+        S(u,v) = A_uu + A_vv + A_uv + A_vu + 2·|C_uv·B_uv|,
+
+    the sum of the magnitudes of every term of G[u,v].  A float32 sum of
+    those terms is within a few 2⁻²⁴·S of the exact G in any order; 3xTF32
+    adds the dropped small·small products and the split's rounding, about
+    2⁻²² of each product; 1xTF32 (both cross terms dropped) is off by
+    hundreds of units of 2⁻²⁴·S.  The limit, 64 units, sits between the
+    two kinds (``tests/test_torch_gain.py`` measures both sides, and
+    planted faults).  C and B may be tensors or arrays.
+    """
+    import torch
+    C = torch.as_tensor(C).to(torch.float64)
+    B = torch.as_tensor(B).to(device=C.device, dtype=torch.float64)
+    A = C.abs() @ B.abs().T
+    a = A.diagonal()
+    S = a[:, None] + a[None, :] + A + A.T + 2.0 * (C * B).abs()
+    return SWAP_GAIN_REL * S
 
 
 def hier_distance_ref(pu, pv, strides: tuple, dists: tuple):

@@ -14,7 +14,11 @@ float32 sum of them is exact in any order).  With real weights the
 kernel and the plain version add the same float32 terms in different
 orders: K1 agrees to rtol 1e-6 of Σ|w·d|, K2 to rtol 1e-6 of each pair's
 Σ|w|·(|d_a| + |d_b|), and K3 (the dense gain matrix, four float32 dot
-products of length n per entry) to n·2⁻²²·max(|C|·|B|ᵀ).  K4 (flash
+products of length n per entry, on 3xTF32 tensor cores) to
+n·2⁻²²·max(|C|·|B|ᵀ) of the plain version and to 2⁻¹⁸·S(u,v) of the
+float64 G at every entry (``kernels.ref.swap_gain_limits``); on integer
+data, and on C of integers up to 2²² with B in TF32 and every sum below
+2²⁴, K3 is exact.  K4 (flash
 attention) is held to 2e-5 at float32 (its float32 route,
 ``csrc/flash_attention.cu``), and at bfloat16 (its sm90 route,
 ``csrc/flash_attention_sm90.cu``) to a limit per element and a limit on
@@ -36,8 +40,8 @@ from repro_torch.kernels import (FLASH_F32_KERNEL, FLASH_KERNEL,
                                  pair_gains_plain, qap_objective_edges,
                                  qap_objective_plain)
 from repro_torch.kernels.ops import permuted_distances
-from repro_torch.kernels.ref import (flash_attention_plain,
-                                     flash_bf16_limits)
+from repro_torch.kernels.ref import (SWAP_GAIN_REL, flash_attention_plain,
+                                     flash_bf16_limits, swap_gain_limits)
 from repro_torch.kernels.swap_gain import (swap_gain_matrix,
                                            swap_gain_matrix_plain)
 from repro_torch.kernels.config import quantize_table
@@ -197,35 +201,81 @@ def test_kernel_wrappers_reject_mixed_devices(cuda):
             8, device=cuda), eu, D)
 
 
-@pytest.mark.parametrize("integer", [True, False], ids=["int", "real"])
-@pytest.mark.parametrize("n", [8, 64, 257, 1000])         # 257, 1000: ragged
-def test_swap_gain_kernel_equals_plain(cuda, n, integer):
+def _swap_gain_instance(n, kind):
+    """C and B = D[perm][:, perm] for K3 as numpy float32: "int" — C of
+    integers 1–9 at density 0.3, D of integers 1–99 (the JAX package's
+    instance); "real" — the same with uniform reals; "edge" — C of
+    integers in [2¹¹, 2¹⁴) on a random cycle and tree distances {1, 10,
+    100} (PEs in fours and sixteens), every |C|·|B|ᵀ sum below 2²⁴."""
     rng = np.random.default_rng(n)
-    if integer:
-        vc, vd = rng.integers(1, 10, (n, n)), rng.integers(1, 100, (n, n))
+    if kind == "edge":
+        order = rng.permutation(n)
+        C = np.zeros((n, n))
+        C[order, np.roll(order, 1)] = rng.integers(2 ** 11, 2 ** 14, n)
+        pe = np.arange(n)
+        D = np.where(pe[:, None] // 16 == pe[None, :] // 16, 10.0, 100.0)
+        D[pe[:, None] // 4 == pe[None, :] // 4] = 1.0
+        np.fill_diagonal(D, 0.0)
+        C = C + C.T
     else:
-        vc, vd = rng.random((n, n)), rng.random((n, n))
-    C = np.triu(vc * (rng.random((n, n)) < 0.3), 1)
-    D = np.triu(vd, 1)
-    Ct = torch.from_numpy((C + C.T).astype(np.float32)).to(cuda)
-    Dt = torch.from_numpy((D + D.T).astype(np.float32)).to(cuda)
-    B = permuted_distances(Dt, rng.permutation(n))
+        if kind == "int":
+            vc, vd = rng.integers(1, 10, (n, n)), rng.integers(1, 100, (n, n))
+        else:
+            vc, vd = rng.random((n, n)), rng.random((n, n))
+        C = np.triu(vc * (rng.random((n, n)) < 0.3), 1)
+        D = np.triu(vd, 1)
+        C, D = C + C.T, D + D.T
+    perm = rng.permutation(n)
+    B = D[np.ix_(perm, perm)]
+    return C.astype(np.float32), B.astype(np.float32)
+
+
+# ragged against the 128-row tiles and against n % 4 (TMA's row stride)
+@pytest.mark.parametrize("kind", ["int", "real", "edge"])
+@pytest.mark.parametrize("n", [8, 64, 127, 128, 129, 257, 1000])
+def test_swap_gain_kernel_equals_plain(cuda, n, kind):
+    C, B = _swap_gain_instance(n, kind)
+    Ct, Bt = torch.from_numpy(C).to(cuda), torch.from_numpy(B).to(cuda)
     before = SWAP_GAIN_KERNEL.launches
-    got = swap_gain_matrix(Ct, B)
+    got = swap_gain_matrix(Ct, Bt)
     assert SWAP_GAIN_KERNEL.launches == before + 1
-    want = swap_gain_matrix_plain(Ct, B)
+    want = swap_gain_matrix_plain(Ct, Bt)
     torch.cuda.synchronize()
     assert got.shape == (n, n) and got.dtype == torch.float32
-    if integer:
-        assert torch.equal(got, want)
-        assert torch.equal(got, got.T)
-    else:
-        tol = n * 2.0 ** -22 * float(torch.max(Ct.abs() @ B.abs().T))
+    exact = tc.dense_gain_matrix(C.astype(np.float64), B.astype(np.float64),
+                                 np.arange(n))
+    g64 = got.cpu().numpy().astype(np.float64)
+    if kind == "real":
+        tol = n * 2.0 ** -22 * float(torch.max(Ct.abs() @ Bt.abs().T))
         assert float(torch.max(torch.abs(got - want))) <= tol
+        limit = swap_gain_limits(C, B).numpy()
+        assert np.all(np.abs(g64 - exact) <= limit), \
+            float(np.max(np.abs(g64 - exact) / limit))
+    else:
+        if kind == "edge":      # the contract's condition for exactness
+            assert float(swap_gain_limits(C, B).max()) / SWAP_GAIN_REL \
+                < 2.0 ** 24
+        assert torch.equal(got, want)
+        assert np.array_equal(g64, exact)
+    assert torch.equal(got, got.T)      # one S entry for G[u,v], G[v,u]
     assert torch.all(torch.diagonal(got) == 0.0)
+    assert torch.equal(got, swap_gain_matrix(Ct, Bt))
     # bf16 inputs are cast to float32 first, as the JAX package does
-    half = swap_gain_matrix(Ct.to(torch.bfloat16), B.to(torch.bfloat16))
+    half = swap_gain_matrix(Ct.to(torch.bfloat16), Bt.to(torch.bfloat16))
     assert half.dtype == torch.float32
+
+
+def test_swap_gain_rejects_a_misaligned_base(cuda):
+    flat = torch.zeros(64 * 64 + 1, device=cuda)
+    C = flat[1:].view(64, 64)           # contiguous, 4 bytes off
+    assert C.is_contiguous() and C.data_ptr() % 16 == 4
+    ok = torch.zeros((64, 64), device=cuda)
+    before = SWAP_GAIN_KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        swap_gain_matrix(C, ok)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        swap_gain_matrix(ok, C)
+    assert SWAP_GAIN_KERNEL.launches == before
 
 
 def test_mapper_gain_matrix_on_card_equals_cpu(cuda):
@@ -240,6 +290,65 @@ def test_mapper_gain_matrix_on_card_equals_cpu(cuda):
     assert np.array_equal(got, want)
     assert np.array_equal(got.astype(np.float64), tc.dense_gain_matrix(
         g.to_dense(), h.distance_matrix(), perm))
+
+
+def test_mapper_gain_matrix_calls_return_arrays_they_own(cuda):
+    h = tc.Hierarchy((8, 8, 8), (1.0, 10.0, 100.0))
+    g = tc.grid3d(8, 8, 8)
+    rng = np.random.default_rng(2)
+    p1, p2 = rng.permutation(N), rng.permutation(N)
+    mapper = tc.Mapper(h, tc.MappingSpec(backend="pallas"))
+    first = mapper.gain_matrix(g, p1)
+    kept = first.copy()
+    second = mapper.gain_matrix(g, p2)
+    assert not np.shares_memory(first, second)
+    assert np.array_equal(first, kept)  # the second call left it alone
+    cpu = tc.Mapper(h, tc.MappingSpec(backend="pallas"), device="cpu")
+    assert np.array_equal(first, cpu.gain_matrix(g, p1))
+    assert np.array_equal(second, cpu.gain_matrix(g, p2))
+    assert first.dtype == np.float32 and first.flags.writeable
+    first[:] = -1.0                     # the caller's to write
+    assert np.array_equal(second, cpu.gain_matrix(g, p2))
+
+
+def _pinned_bytes():
+    """Bytes of page-locked blocks PyTorch's caching host allocator owns
+    (in use and cached)."""
+    return torch.cuda.host_memory_stats()["allocated_bytes.current"]
+
+
+def test_mapper_gain_matrix_pins_no_more_than_the_caller_holds(cuda):
+    """Calls at two sizes (n = 512: 1 MiB; n = 1000: 4 MiB for 3.8 MiB),
+    some results held and the rest dropped: right after every call the
+    process pins no more than the power-of-two blocks of the arrays the
+    caller still holds."""
+    import gc
+
+    from repro_torch.core.plan import empty_host_cache
+    sizes = [(tc.Mapper(tc.Hierarchy(s, (1.0, 10.0, 100.0)),
+                        tc.MappingSpec(backend="pallas")), tc.grid3d(*s))
+             for s in ((8, 8, 8), (10, 10, 10))]
+    rng = np.random.default_rng(3)
+    gc.collect()
+    empty_host_cache()
+    base = _pinned_bytes()
+
+    def block(a):
+        return 1 << (a.nbytes - 1).bit_length()
+
+    held = []
+    for step in range(9):
+        mapper, g = sizes[step % 2]
+        G = mapper.gain_matrix(g, rng.permutation(g.n))
+        live = held + [G]
+        if step % 3 == 0:
+            held.append(G)
+        assert _pinned_bytes() - base <= sum(map(block, live)), step
+        del G, live
+    held.clear()
+    mapper, g = sizes[1]
+    G = mapper.gain_matrix(g, rng.permutation(g.n))
+    assert _pinned_bytes() - base <= block(G)
 
 
 def test_swap_gain_wrapper_rejects_mixed_devices(cuda):

@@ -10,6 +10,15 @@ real data the two add the same float32 products in different orders;
 each of G's four dot products (d_u, d_v, M[u,v], M[v,u]) is within
 n·2⁻²⁴·max(|C|·|B|ᵀ) of the exact sum in each, so the stated bound on
 |ΔG| is n·2⁻²²·max(|C|·|B|ᵀ).
+
+K3's arithmetic on the card (3xTF32 on the tensor cores) cannot run
+here; ``_gain_3xtf32`` emulates it in numpy — the same big/small split,
+the same three products into one float32 sum, the same S taken from the
+upper triangle — and the contract tests hold the emulation to K3's
+tolerance contract: bit-equal to the JAX package on integer instances,
+within n·2⁻²²·max(|C|·|B|ᵀ) and the per-element limit 2⁻¹⁸·S(u,v)
+(``kernels.ref.swap_gain_limits``) on real data, and planted faults
+beyond the per-element limit.
 """
 
 import jax.numpy as jnp
@@ -228,3 +237,150 @@ def test_mapper_gain_matrix_equals_reference(name, backend):
     ref.gain_matrix(g_ref, perm)
     assert (port.cache_info()["kernel_compiles"]
             == ref.cache_info()["kernel_compiles"])
+
+
+# ------------------------------------------------------------ K3 contract
+def _rna_tf32(x):
+    """cvt.rna.tf32.f32: the TF32 value nearest to float32 x, ties away
+    from zero, low 13 bits clear (add half a TF32 ulp to the magnitude,
+    then truncate)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    """K3's split of every operand value: big = rna(x), small =
+    rna(x − big), the subtraction in float32."""
+    x = np.asarray(x, np.float32)
+    big = _rna_tf32(x)
+    return big, _rna_tf32(x - big)
+
+
+def _rz32(x):
+    """float64 → the float32 value next to it toward zero (as float64)."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f.astype(np.float64)
+
+
+STEP = 32       # k-columns a step of K3's K-loop (csrc/swap_gain.cu: kSlab)
+PAIR = 2 * STEP  # k-columns between its float32 promotions
+
+
+def _gain_3xtf32(C, B, fault=None):
+    """G as K3 computes it on the card: S = C·Bᵀ + B·Cᵀ as one K-loop over
+    the stacked operands [C | B]·[B | C]ᵀ (each half padded to whole
+    steps), each product big·big + big·small + small·big; the tensor
+    cores' accumulator is modelled as truncating (each k8 wgmma adds its
+    exact products to it and rounds toward zero), restarted every pair of
+    steps and added into a float32 total; S taken from its upper triangle for
+    both halves, d = rowsum(C∘B) in float32, G = ((d_u + d_v) − S) −
+    2·(C·B), diagonal 0.  ``fault`` plants one error: "1xtf32" (big·big
+    only), "no_corr" (the k == j term 2·C·B dropped), "m_twice" (S = M +
+    M instead of M + Mᵀ)."""
+    C = np.asarray(C, np.float32)
+    B = np.asarray(B, np.float32)
+    n = len(C)
+    width = -(-n // STEP) * STEP
+
+    def halves(p, q):
+        out = np.zeros((n, 2 * width), np.float32)
+        out[:, :n], out[:, width:width + n] = p, q
+        return out
+
+    X = halves(C, C if fault == "m_twice" else B)
+    Y = halves(B, B if fault == "m_twice" else C)
+    (xb, xs), (yb, ys) = _split(X), _split(Y)
+    xb, xs, yb, ys = (t.astype(np.float64) for t in (xb, xs, yb, ys))
+    terms = [(xb, yb)] if fault == "1xtf32" else \
+        [(xb, yb), (xb, ys), (xs, yb)]
+    S = np.zeros((n, n), np.float32)
+    for k0 in range(0, 2 * width, PAIR):
+        acc = np.zeros((n, n))
+        for k in range(k0, k0 + PAIR, 8):
+            for a, b in terms:
+                acc = _rz32(a[:, k:k + 8] @ b[:, k:k + 8].T + acc)
+        S = S + acc.astype(np.float32)
+    S = np.triu(S) + np.triu(S, 1).T
+    d = np.sum(C * B, axis=1, dtype=np.float32)
+    G = (d[:, None] + d[None, :]) - S
+    if fault != "no_corr":
+        G = G - np.float32(2.0) * (C * B)
+    np.fill_diagonal(G, 0.0)
+    return G.astype(np.float32)
+
+
+def _permuted(D, perm):
+    return np.asarray(D, np.float64)[np.ix_(perm, perm)]
+
+
+def _integer_edge(n, seed):
+    """C of integers in [2¹¹, 2¹⁴) — more significant bits than TF32
+    holds, so only the split keeps them — on a random cycle (two
+    neighbours a process), tree distances {1, 10, 100}, and a
+    permutation; every |C|·|B|ᵀ sum stays below 2²⁴."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(n)
+    C = np.zeros((n, n))
+    C[order, np.roll(order, 1)] = rng.integers(2 ** 11, 2 ** 14, n)
+    C = C + C.T
+    h = tc.Hierarchy((4, 4, n // 16), (1.0, 10.0, 100.0))
+    return C, h.distance_matrix(), rng.permutation(n)
+
+
+def _exact(C, D, perm):
+    """The float64 G of the float32-rounded inputs."""
+    f = lambda x: np.asarray(x, np.float32).astype(np.float64)  # noqa: E731
+    return rc.dense_gain_matrix(f(C), f(D), perm)
+
+
+INTEGER_EDGE = [(64, 64), (256, 128)]
+
+
+@pytest.mark.parametrize("n,tile", CASES)
+def test_3xtf32_equals_reference_on_integers(n, tile):
+    C, D, perm = _instance(n, n, integer=True)
+    got = _gain_3xtf32(C, _permuted(D, perm))
+    assert np.array_equal(got, _ref(C, D, perm, tile))
+    assert np.array_equal(got, rc.dense_gain_matrix(C, D, perm))
+
+
+@pytest.mark.parametrize("n,tile", INTEGER_EDGE)
+def test_3xtf32_exact_on_integer_edge(n, tile):
+    C, D, perm = _integer_edge(n, n)
+    B = _permuted(D, perm)
+    scale = tref.swap_gain_limits(C, B).numpy() / tref.SWAP_GAIN_REL
+    assert np.max(scale) < 2.0 ** 24                # the contract holds
+    got = _gain_3xtf32(C, B)
+    want = _ref(C, D, perm, tile)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, rc.dense_gain_matrix(C, D, perm))
+    assert np.array_equal(got, got.T)
+    # C's low bits matter here: 1xTF32 is not exact
+    assert not np.array_equal(_gain_3xtf32(C, B, "1xtf32"), want)
+
+
+@pytest.mark.parametrize("n,tile", CASES)
+def test_3xtf32_within_limits_on_real_data(n, tile):
+    C, D, perm = _instance(n, n, integer=False)
+    B = _permuted(D, perm)
+    got = _gain_3xtf32(C, B).astype(np.float64)
+    limit = tref.swap_gain_limits(C, B).numpy()
+    assert np.all(np.abs(got - _exact(C, D, perm)) <= limit)
+    assert np.max(np.abs(got - _ref(C, D, perm, tile))) <= \
+        _bound(C, D, perm)
+    # G[u,v] and G[v,u] come from one S entry: bit-symmetric on real data
+    assert np.array_equal(got, got.T)
+
+
+@pytest.mark.parametrize("fault", ["1xtf32", "no_corr", "m_twice"])
+@pytest.mark.parametrize("n", [64, 100, 257])
+def test_planted_faults_exceed_the_limit(n, fault):
+    C, D, perm = _instance(n, n, integer=False)
+    B = _permuted(D, perm)
+    limit = tref.swap_gain_limits(C, B).numpy()
+    err = np.abs(_gain_3xtf32(C, B, fault).astype(np.float64)
+                 - _exact(C, D, perm))
+    assert np.max(err / limit) > 1.0
