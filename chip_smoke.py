@@ -11,14 +11,21 @@ one JSON line after each, failing loudly on the first fault:
               limit (``nvidia-smi``).
 2. build    — compiles every kernel of the port from
               ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at
-              once) and prints the ``-Xptxas -v`` register / shared-memory
-              report.
+              once; also ``host_alloc.cu``, the page-locked blocks of the
+              gain call) and prints the ``-Xptxas -v`` register / shared-
+              memory / spill report, K1's, K2's and K3's in the build line.
 3. kernels  — holds K1 (objective) and K2 (pair gains) against their plain
               PyTorch versions on the card at the main path's shapes
               (E = 11,520 edges on 4096 PEs; P = 1,824,720 pairs, K = 8):
               integer inputs exactly, real-weight inputs to rtol 1e-6 of
-              Σ|w·d|; times each with CUDA events over 100 launches after
-              warm-up beside its plain version and its bound.
+              Σ|w·d|.  Times K2 in the tree, torus and int8-matrix forms
+              and K1 in the tree form: the device time per launch (a spin
+              kernel holds the stream while 100 calls are enqueued, so
+              CUDA events bracket the kernels alone), the wrapper's host
+              time per call (100 calls, no synchronize), the back-to-back
+              figure of earlier runs, the CUDA kernels per call and their
+              durations (torch.profiler), beside the plain version and
+              the bound.
 4. main     — ``Mapper(4:16:64 / 1:10:100, MappingSpec(engine="device",
               backend="pallas"), device="cuda").map(grid3d(16, 16, 16))``
               with the launch counts set to 0 just before and read just
@@ -26,7 +33,8 @@ one JSON line after each, failing loudly on the first fault:
               float64 objective, jf <= j0) and that the card's refinement
               equals the plain versions' on the CPU from the same start.
 5. forms    — the same path on a torus and on a fat-tree distance matrix
-              packed to int8, at n = 1024.
+              packed to int8, at n = 1024, each equal to the CPU
+              refinement from the same start.
 6. gain     — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
               the main map's graph, machine and final permutation, with
               the launch counts set to 0 just before and read just
@@ -47,7 +55,8 @@ one JSON line after each, failing loudly on the first fault:
               through page-locked memory (what the call does) beside the
               pageable ``.cpu()``, and the warm call (least, median and
               largest of 5) with each result dropped and with the
-              previous one held.
+              previous one held, with the page-locked blocks each call
+              made, freed and reused, PyTorch's and the port's own.
 7. flash    — holds K4 (flash attention) against its plain version on
               the card at the serve shape (B 4, T 2048, H 32, KV 8, hd
               128, bf16) and at starcoder2-7b's windowed shape (B 1, T
@@ -79,9 +88,11 @@ K4 one per route: route, source, the TPU kernel it replaces, launches on
 its path — the main map for K1 and K2, the gain call for K3, the serve
 call for K4's bf16 route and the float32 prefill check for its float32
 route —
-max |kernel − plain|, ms, plain_ms, bound_ms, bound_by, library_ms); the
-last is ``{"ok": true, "device": {...}}``.  Without a card, or outside a
-checkout, it exits non-zero and prints no result.
+max |kernel − plain|, ms, plain_ms, bound_ms, bound_by, library_ms; K1's
+and K2's ms is the device time per launch); the last is ``{"ok": true,
+"device": {...}}``.  Without a card, or outside a checkout, it exits
+non-zero and prints no result.  ``--stop-after build|kernels`` runs the
+phases up to that one and stops, with neither line.
 """
 
 from __future__ import annotations
@@ -163,7 +174,8 @@ def phase_build():
     from repro_torch.kernels.cuda import build, library_path
     t0 = time.perf_counter()
     reports = build(["qap_objective", "pair_gain", "swap_gain",
-                     "flash_attention", "flash_attention_sm90"])
+                     "flash_attention", "flash_attention_sm90",
+                     "host_alloc"])
     secs = time.perf_counter() - t0
     for name, text in reports.items():
         for line in text.splitlines():
@@ -173,6 +185,8 @@ def phase_build():
     emit({"phase": "build", "seconds": secs,
           "libraries": [str(library_path(n).relative_to(ROOT))
                         for n in reports],
+          "qap_objective": ptxas_usage(reports["qap_objective"]),
+          "pair_gain": ptxas_usage(reports["pair_gain"]),
           "swap_gain": dict(ptxas_usage(reports["swap_gain"]),
                             gain_tile_dynamic_smem=swap_gain_smem())})
 
@@ -217,7 +231,9 @@ def swap_gain_smem() -> int:
 # ------------------------------------------------------------ timing
 def cuda_ms(fn, iters: int = ITERS, warmup: int = 5) -> float:
     """Mean milliseconds per call over ``iters`` back-to-back calls,
-    timed with CUDA events after ``warmup`` calls."""
+    timed with CUDA events after ``warmup`` calls.  Where the host takes
+    longer to enqueue a call than the card takes to run it, this is the
+    host's rate (``device_ms`` is the kernel's)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -230,6 +246,75 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = ITERS, warmup: int = 5) -> float:
+    """Mean host milliseconds per call of ``iters`` calls made without a
+    synchronize (the wrapper's own cost: checks, arguments, launch)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / iters * 1e3
+
+
+def device_ms(fn, iters: int = ITERS) -> dict:
+    """Mean device milliseconds per call: a spin kernel
+    (``torch.cuda._sleep``) holds the stream for twice the host's time
+    to enqueue ``iters`` calls, so the CUDA events around the calls
+    bracket the kernels run back to back, not the host's enqueue rate.
+    Also the host time per call (``host_ms``)."""
+    import torch
+    host = host_ms(fn, iters)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    hold_s = 2.0 * host * iters / 1e3 + 1e-3
+    torch.cuda._sleep(int(hold_s * 2.0e9))  # >= hold_s at clocks <= 2 GHz
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    check(enqueue_s < hold_s, f"device_ms: enqueue took {enqueue_s} s, "
+          f"longer than the {hold_s} s hold")
+    return {"device_ms": start.elapsed_time(end) / iters, "host_ms": host}
+
+
+def profile_calls(fn, iters: int = 20) -> dict:
+    """torch.profiler over ``iters`` calls of ``fn``: the CUDA kernels
+    it recorded per call, and by name each kernel's launches and mean
+    device milliseconds.  {"error": ...} if the profiler records no
+    device time here."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    except (RuntimeError, AttributeError) as exc:
+        return {"error": f"{type(exc).__name__}: {exc}"}
+    if not rows:
+        return {"error": "the profiler recorded no device time"}
+    return {"calls": iters,
+            "kernels_per_call": sum(c for _, _, c in rows) / iters,
+            "by_name": {n[:80]: {"launches": c, "ms_each": ms / c}
+                        for n, ms, c in rows}}
 
 
 def nbytes(*tensors) -> int:
@@ -289,6 +374,22 @@ def form_of(topo, packing, device):
     return "matrix", (), torch.from_numpy(table).to(device)
 
 
+def table_entries(dg, perm, us, vs, D) -> int:
+    """Bytes of the distance-table entries K2 reads for these pairs, each
+    counted once: rows π_u and π_v against the columns π_k of both
+    neighbor rows."""
+    import torch
+    perm_l = perm.long()
+    n_pe = D.shape[0]
+    seen = []
+    for a, b in ((us, vs), (vs, us)):
+        cols = perm_l[dg.nbr[a.long()].long()]            # (P, K)
+        for r in (a, b):
+            seen.append((perm_l[r.long()][:, None] * n_pe + cols)
+                        .reshape(-1))
+    return int(torch.unique(torch.cat(seen)).numel()) * D.element_size()
+
+
 def phase_kernels(forms):
     import numpy as np
     import torch
@@ -338,12 +439,20 @@ def phase_kernels(forms):
                   "abs_err": err})
     kind, params, D = form_of(*forms["tree"], dev)
     args = (kind, params, eu, ev, ew, perm, D)
-    k1["ms"] = cuda_ms(lambda: qap_objective_edges(*args))
+    call = lambda: qap_objective_edges(*args)  # noqa: E731
+    # the kernel's device time apart from the wrapper's host time, and
+    # the back-to-back figure of earlier runs (which is the slower of
+    # the two rates)
+    k1.update(device_ms(call))
+    k1["ms"] = k1["device_ms"]
+    k1["ms_back_to_back"] = cuda_ms(call)
+    k1["profile"] = profile_calls(call)
     k1["plain_ms"] = cuda_ms(lambda: qap_objective_plain(*args))
     # per edge: eu, ev, ew once, the two perm entries it gathers (perm is
     # read once overall), and ~(k + 2) integer/float ops of the oracle
     k1["bound_ms"], k1["bound_by"] = bound(
         nbytes(eu, ev, ew, perm, D) + 4, e * 2.0)
+    k1["share_of_bound"] = k1["bound_ms"] / k1["ms"]
 
     t0 = time.perf_counter()
     pairs = communication_pairs(g, 10)
@@ -354,7 +463,7 @@ def phase_kernels(forms):
     us, vs = device_pairs(pairs, device=dev)
     p, kdeg = int(us.shape[0]), dg.max_deg
     check(kdeg == SIZE["ell"], f"main-path ELL width {kdeg}")
-    k2 = {"max_abs_err": 0.0}
+    k2 = {"max_abs_err": 0.0, "forms": {}}
     for name in ("tree", "torus", "matrix-int8"):
         kind, params, D = form_of(*forms[name], dev)
         args = (kind, params, dg.nbr, dg.wgt, perm, us, vs, D)
@@ -365,19 +474,29 @@ def phase_kernels(forms):
         check(bool(torch.all(got[len(pairs):] == 0.0)),
               f"K2 {name}: padding pairs have nonzero gain")
         k2["max_abs_err"] = max(k2["max_abs_err"], err)
+        call = lambda: pair_gains(*args)  # noqa: E731
+        rec = dict(device_ms(call), ms_back_to_back=cuda_ms(call),
+                   plain_ms=cuda_ms(lambda: pair_gains_plain(*args),
+                                    iters=10, warmup=2),
+                   profile=profile_calls(call), abs_err=err)
+        # bytes: us, vs, nbr, wgt, perm once, the gains written once, and
+        # for a table the entries this run's pairs read, each once;
+        # operations: per pair and side K slots of (sub, mul, add)
+        table = table_entries(dg, perm, us, vs, D) if kind == "matrix" \
+            else 0
+        rec["bound_ms"], rec["bound_by"] = bound(
+            nbytes(us, vs, dg.nbr, dg.wgt, perm) + table + p * 4,
+            p * 2.0 * kdeg * 3.0)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+        rec["table_bytes_read"] = table
+        k2["forms"][name] = rec
         emit({"phase": "kernels", "kernel": "pair_gains", "form": name,
-              "P": p, "K": kdeg, "abs_err": err,
-              "positive": int(torch.sum(got > 0)),
-              "host_pairs_seconds": pairs_seconds})
-    kind, params, D = form_of(*forms["tree"], dev)
-    args = (kind, params, dg.nbr, dg.wgt, perm, us, vs, D)
-    k2["ms"] = cuda_ms(lambda: pair_gains(*args))
-    k2["plain_ms"] = cuda_ms(lambda: pair_gains_plain(*args))
-    # bytes: us, vs, nbr, wgt, perm, D once, the gains written once;
-    # operations: per pair and side K slots of (2 oracles, sub, mul, add)
-    k2["bound_ms"], k2["bound_by"] = bound(
-        nbytes(us, vs, dg.nbr, dg.wgt, perm, D) + p * 4,
-        p * 2.0 * kdeg * 3.0)
+              "P": p, "K": kdeg, "positive": int(torch.sum(got > 0)),
+              "host_pairs_seconds": pairs_seconds, **rec})
+    # the main path's form: the tree
+    main = k2["forms"]["tree"]
+    k2.update(ms=main["device_ms"], plain_ms=main["plain_ms"],
+              bound_ms=main["bound_ms"], bound_by=main["bound_by"])
     for rec in (k1, k2):
         rec["library_ms"] = None        # no single PyTorch call computes it
     emit({"phase": "kernels", "qap_objective": k1, "pair_gains": k2})
@@ -515,20 +634,26 @@ def ragged_instance(n: int, seed: int, density: float = 0.3):
 
 def warm_calls(call, reps: int = 5, hold: bool = False) -> dict:
     """Host seconds of ``reps`` calls: their least, median and largest,
-    and each one, with the page-locked blocks the caching host allocator
-    made and freed and the gen-2 garbage collections during each call.
-    Each result is dropped before the next call starts, unless ``hold``,
-    when the caller keeps the previous result while the next call runs."""
+    and each one, with what each call did to page-locked memory and the
+    gen-2 garbage collections during it.  Page-locked memory: the blocks
+    PyTorch's caching host allocator made and freed, and the port's own
+    pool (``core/pinned.py``): blocks allocated, freed and reused, and
+    its bytes pinned after the call.  Each result is dropped before the
+    next call starts, unless ``hold``, when the caller keeps the previous
+    result while the next call runs."""
     import gc
     import statistics
 
     import torch
 
+    from repro_torch.core import pinned
+
     def counts():
-        h = torch.cuda.host_memory_stats()
+        h, p = torch.cuda.host_memory_stats(), pinned.stats()
         return (h.get("num_host_alloc", 0), h.get("num_host_free", 0),
-                gc.get_stats()[2]["collections"])
-    secs, events, kept = [], [], None
+                gc.get_stats()[2]["collections"], p["host_allocs"],
+                p["host_frees"], p["reuses"])
+    secs, events, pinned_after, kept = [], [], [], None
     for _ in range(reps):
         before = counts()
         out, s = _host_s(call)
@@ -536,10 +661,12 @@ def warm_calls(call, reps: int = 5, hold: bool = False) -> dict:
         events.append([b - a for a, b in zip(before, counts())])
         kept = out if hold else None
         del out
+        pinned_after.append(pinned.stats()["pinned_bytes"])
     del kept
     return {"min": min(secs), "median": statistics.median(secs),
             "max": max(secs), "calls": secs,
-            "host_allocs_frees_gc2": events}
+            "torch_allocs_frees_gc2_own_allocs_frees_reuses": events,
+            "own_pinned_bytes_after": pinned_after}
 
 
 def phase_gain(topo, g, perm, pairs, forms):
@@ -1089,15 +1216,26 @@ def phase_serve(k4_serve_ms):
     return launches, f32_launches
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "one CUDA card (see the module notes).")
+    ap.add_argument("--stop-after", choices=("build", "kernels"),
+                    help="run the phases up to this one and stop, with "
+                         "no kernels line and no result line")
+    args = ap.parse_args(argv)
     preflight()
     import torch
     # full float32 products in the plain versions and the library call
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_device()
     phase_build()
+    if args.stop_after == "build":
+        return 0
     forms = machines()
     k1, k2 = phase_kernels(forms)
+    if args.stop_after == "kernels":
+        return 0
     from repro_torch.core import Hierarchy, grid3d
     from repro_torch.topology import (FatTreeTopology, MatrixTopology,
                                       TorusTopology)
@@ -1110,10 +1248,10 @@ def main() -> int:
                                               compare_cpu=True)
     quarter = grid3d(side, side, side // 4)
     run_map(TorusTopology((side, side, side // 4)), quarter, "forms:torus",
-            compare_cpu=False)
+            compare_cpu=True)
     run_map(MatrixTopology(matrix=FatTreeTopology(
         SIZE["forms_fattree"], (1.0, 1.0, 1.0)).distance_matrix()), quarter,
-        "forms:fattree-matrix-int8", compare_cpu=False)
+        "forms:fattree-matrix-int8", compare_cpu=True)
     k3, gain_launches = phase_gain(main_topo, main_g, main_perm, main_pairs,
                                    forms)
     k4, k4_worst = phase_flash()
@@ -1154,4 +1292,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

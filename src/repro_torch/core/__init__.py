@@ -14,6 +14,8 @@ construct the same permutations and candidate pairs):
                  and JSON forms
   plan         — MappingPlan: the lowered artifact + execute hot path
   mapping      — Mapper sessions (one LRU plan cache, one engine pool)
+  pinned       — the port's own page-locked host blocks (the gain call's
+                 readback), with their counts
   graph        — CSR communication graphs, Metis IO, generators, and the
                  torch DeviceGraph / device_pairs
   hierarchy    — hierarchical topologies + cached online distance oracle

@@ -185,32 +185,31 @@ def build_swap_gain_kernel(topology, device=None):
 
 def read_back(G) -> np.ndarray:
     """G as a float32 numpy array that the caller owns.  A CUDA tensor is
-    copied into page-locked host memory and the array is a view of it,
-    which keeps it alive; a pageable ``.cpu()`` copy runs at a fraction
-    of the link's rate.  A CPU tensor is returned as its own view.
+    copied into a page-locked block of the port's own pool
+    (``core/pinned.py``) and the array is a view of it, which keeps it
+    pinned; a pageable ``.cpu()`` copy runs at a fraction of the link's
+    rate.  A CPU tensor is returned as its own view.
 
-    The page-locked block comes from PyTorch's caching host allocator,
-    its size rounded up to a power of two (n = 4096: 64 MiB; n = 1000:
-    4 MiB for 3.8 MiB), and stays pinned while the caller holds the
-    array.  A block the caller has dropped is reused by the next call of
-    its size, so a warm call pays no ``cudaHostAlloc``; every other free
-    cached block is handed back to the driver right after the copy
-    (``empty_host_cache``, process-wide).  So at the end of a call the
-    process pins no more host memory than the arrays still held, and
-    between calls at most what the caller held at once since the last
-    one."""
+    When the caller drops the array the block goes back to the pool,
+    which keeps one free block of each size for the next call and frees
+    the rest: a warm call whose earlier result was dropped pays no
+    ``cudaHostAlloc``.  No other page-locked memory of the process is
+    touched (PyTorch's caching host allocator is neither used nor
+    emptied)."""
     if G.device.type != "cuda":
         return G.numpy()
     import torch
-    host = torch.empty(G.shape, dtype=G.dtype, pin_memory=True)
-    host.copy_(G)
-    empty_host_cache()
-    return host.numpy()
+
+    from . import pinned
+    host = pinned.empty(tuple(G.shape), str(G.dtype).replace("torch.", ""))
+    torch.from_numpy(host).copy_(G)
+    return host
 
 
 def empty_host_cache() -> None:
     """Hand every free block of PyTorch's caching host allocator back to
-    the driver (blocks in use stay)."""
+    the driver (blocks in use stay).  The port never calls it; a caller
+    that wants PyTorch's cache empty may."""
     import torch
     accel = getattr(torch, "accelerator", None)
     fn = getattr(accel, "empty_host_cache", None)

@@ -13,16 +13,40 @@
 // Bound on the H100: memory.  At the main path's P = 1,824,720 and
 // K = 8 the kernel must read us and vs (14.6 MB) and write the gains
 // (7.3 MB); nbr, wgt and π are 0.28 MB and stay in L2.  ~22 MB at
-// 3.35 TB/s is ~6.6 µs; the arithmetic (≤ 2·2·K oracle evaluations per
-// pair) is negligible next to it.
+// 3.35 TB/s is ~6.6 µs.  What it costs instead is instructions and
+// dependent gathers: 2 sides × K slots, each a π gather behind a row
+// load, then two distances.
 //
-// Design: one thread per pair does every gather itself — us/vs (the
+// Design.  One thread per pair does every gather itself — us/vs (the
 // only streamed bytes, coalesced), π, both neighbor rows and the
 // distances — so none of the (P, K) intermediates the TPU wrapper
-// materialized ever reaches device memory.  The `k != other` exclusion
-// is folded into the weight.  Each side is reduced over its K slots in
-// order, then the two sides are added, the reference's order.  Padding
-// pairs (u, u) give exactly 0: every term is w · (d − d).
+// materialized ever reaches device memory.
+//   - No division: the closed forms take quotients through the host's
+//     fixed-point reciprocals (distance.cuh).  Dividing by the runtime
+//     strides in every oracle call, as the first version of this kernel
+//     did, costs up to 128 divisions a pair in the main cell, ~60 % of
+//     that version's time in the tree form (PERF.md).
+//   - The pair's own keys (π_u's and π_v's ancestors, or torus
+//     coordinates) are computed once, before the slot loops, into
+//     registers; each slot computes only its target's keys and compares
+//     them with both.
+//   - Rows are read four slots at a time, 16-byte loads through the
+//     read-only path, and the four π gathers of a group are issued
+//     together.  The wrapper pads rows to K % 4 == 0 with inert
+//     zero-weight slots.
+// Pairs arrive in (u, v) order with ~445 pairs per u, so a warp's u
+// side reads one row: those loads are broadcasts.
+//
+// Where it stands (H100, main shape): 0.053 ms in the tree form, ~12 %
+// of the bound (how the rest splits between the remaining instructions
+// and the gathers' latency is not measured); the int8 table form 0.23
+// ms, which divides by nothing: its two table gathers a slot, into a
+// 16 MiB table that lives in L2, hold it.
+//
+// Order: each side is reduced over its K slots in order, then the two
+// sides are added — the reference's order.  The `k != other` exclusion
+// is folded into the weight.  Padding pairs (u, u) give exactly 0:
+// every term is w · (d − d).
 #include "distance.cuh"
 
 namespace viem {
@@ -30,50 +54,73 @@ namespace {
 
 constexpr int kBlock = 256;
 
-template <int FORM>
-__device__ __forceinline__ float side_gain(const int* __restrict__ row,
-                                           const float* __restrict__ wrow,
-                                           int K, int other,
-                                           const int* __restrict__ perm,
-                                           int pa, int pb,
-                                           const void* __restrict__ D,
-                                           const FormParams& f) {
+template <int FORM, int L>
+__device__ __forceinline__ float side_gain(
+    const int* __restrict__ row, const float* __restrict__ wrow, int K,
+    int other, const int* __restrict__ perm, int pa, const int* ka, int pb,
+    const int* kb, const void* __restrict__ D, const FormParams& f,
+    float top) {
   float s = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const int node = row[k];
-    const float w = node == other ? 0.0f : wrow[k];
-    const float delta = distance_delta<FORM>(f, D, pa, pb, perm[node]);
-    s = __fadd_rn(s, __fmul_rn(w, delta));
+  for (int k0 = 0; k0 < K; k0 += 4) {
+    const int4 nb = __ldg(reinterpret_cast<const int4*>(row + k0));
+    const float4 wv = __ldg(reinterpret_cast<const float4*>(wrow + k0));
+    const int node[4] = {nb.x, nb.y, nb.z, nb.w};
+    const float w[4] = {wv.x, wv.y, wv.z, wv.w};
+    int t[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[j] = __ldg(perm + node[j]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float wj = node[j] == other ? 0.0f : w[j];
+      const float d = delta_keyed<FORM, L>(f, top, D, pa, ka, pb, kb, t[j]);
+      s = __fadd_rn(s, __fmul_rn(wj, d));
+    }
   }
   return s;
 }
 
-template <int FORM>
+template <int FORM, int L>
 __global__ void __launch_bounds__(kBlock)
 pair_gains(const int* __restrict__ nbr, const float* __restrict__ wgt, int K,
            const int* __restrict__ perm, const int* __restrict__ us,
            const int* __restrict__ vs, int P, const void* __restrict__ D,
-           FormParams f, float* __restrict__ out) {
+           const __grid_constant__ FormParams f, float* __restrict__ out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= P) return;
   const int u = us[i];
   const int v = vs[i];
-  const int pu = perm[u];
-  const int pv = perm[v];
+  const int pu = __ldg(perm + u);
+  const int pv = __ldg(perm + v);
+  int ku[L], kv[L];
+  keys_of<FORM, L>(f, pu, ku);
+  keys_of<FORM, L>(f, pv, kv);
   const size_t ru = static_cast<size_t>(u) * K;
   const size_t rv = static_cast<size_t>(v) * K;
-  const float sa = side_gain<FORM>(nbr + ru, wgt + ru, K, v, perm, pu, pv, D, f);
-  const float sb = side_gain<FORM>(nbr + rv, wgt + rv, K, u, perm, pv, pu, D, f);
+  const float top = top_distance(f);
+  const float sa = side_gain<FORM, L>(nbr + ru, wgt + ru, K, v, perm, pu, ku,
+                                      pv, kv, D, f, top);
+  const float sb = side_gain<FORM, L>(nbr + rv, wgt + rv, K, u, perm, pv, kv,
+                                      pu, ku, D, f, top);
   out[i] = __fadd_rn(sa, sb);
 }
+
+// A closed form of at most 4 levels (every preset machine) takes the
+// instance whose key arrays hold 4 registers, not 16: 39–40 registers a
+// thread against 64, and less time at the main shape (PERF.md).  Matrix
+// forms have no keys.
+constexpr int kFewLevels = 4;
 
 template <int FORM>
 void launch(const int* nbr, const float* wgt, int K, const int* perm,
             const int* us, const int* vs, int P, const void* D,
             const FormParams& f, float* out, cudaStream_t stream) {
   const int grid = (P + kBlock - 1) / kBlock;
-  pair_gains<FORM><<<grid, kBlock, 0, stream>>>(nbr, wgt, K, perm, us, vs, P,
-                                                D, f, out);
+  if (FORM >= kMatF32 || f.nlev <= kFewLevels)
+    pair_gains<FORM, kFewLevels><<<grid, kBlock, 0, stream>>>(
+        nbr, wgt, K, perm, us, vs, P, D, f, out);
+  else if constexpr (FORM < kMatF32)
+    pair_gains<FORM, kMaxLevels><<<grid, kBlock, 0, stream>>>(
+        nbr, wgt, K, perm, us, vs, P, D, f, out);
 }
 
 }  // namespace
@@ -81,33 +128,36 @@ void launch(const int* nbr, const float* wgt, int K, const int* perm,
 
 extern "C" {
 
-// out[i] = gain of swapping us[i] and vs[i] under perm.  Returns a
-// cudaError_t code.
+// out[i] = gain of swapping us[i] and vs[i] under perm.  K % 4 == 0 and
+// nbr, wgt 16-byte aligned; ``f`` points at the host's FormParams of
+// ``f_bytes`` bytes.  Returns a cudaError_t code.
 int viem_pair_gains(const int* nbr, const float* wgt, int K, const int* perm,
                     const int* us, const int* vs, int P, const void* D,
-                    int form, int nlev, int n_pe, const int* ip, int n_ip,
-                    const float* fp, int n_fp, float* out, void* stream) {
-  viem::FormParams f;
-  if (P < 0 || K < 0 || !viem::make_form_params(nlev, n_pe, ip, n_ip, fp,
-                                                n_fp, &f))
+                    int form, const viem::FormParams* f, int f_bytes,
+                    float* out, void* stream) {
+  if (P < 0 || K < 0 || K % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(nbr) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(wgt) % 16 != 0 ||
+      f_bytes != static_cast<int>(sizeof(viem::FormParams)) ||
+      f->nlev < 0 || f->nlev > viem::kMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (form) {
     case viem::kTree:
-      viem::launch<viem::kTree>(nbr, wgt, K, perm, us, vs, P, D, f, out, s);
+      viem::launch<viem::kTree>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
       break;
     case viem::kTorus:
-      viem::launch<viem::kTorus>(nbr, wgt, K, perm, us, vs, P, D, f, out, s);
+      viem::launch<viem::kTorus>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
       break;
     case viem::kMatF32:
-      viem::launch<viem::kMatF32>(nbr, wgt, K, perm, us, vs, P, D, f, out, s);
+      viem::launch<viem::kMatF32>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
       break;
     case viem::kMatI8:
-      viem::launch<viem::kMatI8>(nbr, wgt, K, perm, us, vs, P, D, f, out, s);
+      viem::launch<viem::kMatI8>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
       break;
     case viem::kMatI16:
-      viem::launch<viem::kMatI16>(nbr, wgt, K, perm, us, vs, P, D, f, out, s);
+      viem::launch<viem::kMatI16>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -8,23 +8,33 @@
 //
 // Bound on the H100: memory.  Per edge it reads eu, ev, ew (12 B) plus
 // two π entries and, for the matrix forms, one table entry; at the main
-// path's E = 11,520 that is ~0.15 MB, far below what a launch costs, so
-// at that size the kernel is bound by launch latency, not by bytes or
-// arithmetic (the tree and torus oracles are a handful of integer ops).
+// path's E = 11,520 that is ~0.15 MB, ~0.05 µs at 3.35 TB/s — far below
+// what a launch costs, so at that size the kernel is bound by launch
+// latency and by its wrapper's host work, not by bytes or arithmetic.
 //
-// Design: the π gather and the distance are fused into one pass, so
-// nothing per-edge is written back to memory.  Blocks grid-stride over
-// the edges; each thread sums its edges in order, the block reduces in a
-// fixed tree, and a second one-block pass adds the per-block partials in
-// a fixed order.  The grid size depends only on E, so the result is
-// deterministic run to run; no float atomics.  Padding edges
-// (0, 0, w = 0) add exactly 0.
+// Design: one launch a call.  The π gather and the distance (division-
+// free, distance.cuh) are fused into one pass, so nothing per-edge is
+// written back to memory.  Blocks grid-stride over the edges; each
+// thread sums its edges in order and the block reduces in a fixed tree
+// into its partial.  The last block to finish — each block takes a
+// ticket from an atomic counter after a __threadfence() that publishes
+// its partial — adds the partials in a fixed order, writes J and resets
+// the counter to 0 for the next launch.  The grid size depends only on
+// E, so the result is deterministic run to run, and equal to that of a
+// second launch summing the partials the same way; no float atomics.
+// Padding edges (0, 0, w = 0) add exactly 0.
+//
+// Where it stands (H100, main shape): one launch of ~4.7 µs on the
+// device against ~37 µs of host time in its wrapper (PERF.md); a call
+// costs what the host spends on it.
 #include "distance.cuh"
 
 namespace viem {
 namespace {
 
+// kernels/qap_objective.py sizes the grid and the scratch by these two
 constexpr int kBlock = 256;
+constexpr int kMaxBlocks = 1024;
 
 __device__ __forceinline__ float block_sum(float v, float* sm) {
   sm[threadIdx.x] = v;
@@ -38,41 +48,52 @@ __device__ __forceinline__ float block_sum(float v, float* sm) {
   return sm[0];
 }
 
+// ``scratch`` holds kMaxBlocks partials, then the ticket counter (0
+// between launches).
 template <int FORM>
 __global__ void __launch_bounds__(kBlock)
-objective_partials(const int* __restrict__ eu, const int* __restrict__ ev,
-                   const float* __restrict__ ew, int E,
-                   const int* __restrict__ perm, const void* __restrict__ D,
-                   FormParams f, float* __restrict__ partials) {
+objective(const int* __restrict__ eu, const int* __restrict__ ev,
+          const float* __restrict__ ew, int E, const int* __restrict__ perm,
+          const void* __restrict__ D, const __grid_constant__ FormParams f,
+          float* __restrict__ scratch, float* __restrict__ out) {
   __shared__ float sm[kBlock];
+  __shared__ bool last;
+  const float top = top_distance(f);
   float acc = 0.0f;
   for (int i = blockIdx.x * kBlock + threadIdx.x; i < E;
        i += gridDim.x * kBlock) {
-    const float d = distance<FORM>(f, D, perm[eu[i]], perm[ev[i]]);
+    const float d = distance<FORM>(f, top, D, __ldg(perm + eu[i]),
+                                   __ldg(perm + ev[i]));
     acc = __fadd_rn(acc, __fmul_rn(ew[i], d));
   }
   const float total = block_sum(acc, sm);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kBlock)
-sum_partials(const float* __restrict__ partials, int nb,
-             float* __restrict__ out) {
-  __shared__ float sm[kBlock];
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < nb; i += kBlock)
-    acc = __fadd_rn(acc, partials[i]);
-  const float total = block_sum(acc, sm);
-  if (threadIdx.x == 0) out[0] = total;
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(scratch + kMaxBlocks);
+  if (threadIdx.x == 0) {
+    scratch[blockIdx.x] = total;
+    __threadfence();                 // the partial is visible before the ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) __threadfence();       // and the partials' reads after it
+  }
+  __syncthreads();
+  if (!last) return;
+  // Every other block's partial is in L2 (fenced before its ticket);
+  // __ldcg reads there, past this SM's L1.
+  float sum = 0.0f;
+  for (int b = threadIdx.x; b < gridDim.x; b += kBlock)
+    sum = __fadd_rn(sum, __ldcg(scratch + b));
+  const float j = block_sum(sum, sm);
+  if (threadIdx.x == 0) {
+    out[0] = j;
+    *ticket = 0u;
+  }
 }
 
 template <int FORM>
 void launch(const int* eu, const int* ev, const float* ew, int E,
             const int* perm, const void* D, const FormParams& f,
-            float* partials, int nb, float* out, cudaStream_t stream) {
-  objective_partials<FORM><<<nb, kBlock, 0, stream>>>(eu, ev, ew, E, perm, D,
-                                                      f, partials);
-  sum_partials<<<1, kBlock, 0, stream>>>(partials, nb, out);
+            float* scratch, int nb, float* out, cudaStream_t stream) {
+  objective<FORM><<<nb, kBlock, 0, stream>>>(eu, ev, ew, E, perm, D, f,
+                                             scratch, out);
 }
 
 }  // namespace
@@ -80,36 +101,36 @@ void launch(const int* eu, const int* ev, const float* ew, int E,
 
 extern "C" {
 
-// Threads per block; the wrapper sizes the partials buffer from it.
-int viem_objective_block() { return viem::kBlock; }
-
-// out[0] = Σ_e ew[e] · D(perm[eu[e]], perm[ev[e]]).  ``partials`` holds
-// ``nb`` floats of scratch (nb >= 1).  Returns a cudaError_t code.
+// out[0] = Σ_e ew[e] · D(perm[eu[e]], perm[ev[e]]) in one launch of
+// ``nb`` blocks (1 <= nb <= kMaxBlocks).  ``scratch`` holds kMaxBlocks
+// floats and a counter that is 0 (zero-filled before the first launch;
+// each launch leaves it 0) and is used by one stream at a time.  ``f``
+// points at the host's FormParams of ``f_bytes`` bytes.  Returns a
+// cudaError_t code.
 int viem_qap_objective(const int* eu, const int* ev, const float* ew, int E,
-                       const int* perm, const void* D, int form, int nlev,
-                       int n_pe, const int* ip, int n_ip, const float* fp,
-                       int n_fp, float* partials, int nb, float* out,
-                       void* stream) {
-  viem::FormParams f;
-  if (E < 0 || nb < 1 || !viem::make_form_params(nlev, n_pe, ip, n_ip, fp,
-                                                 n_fp, &f))
+                       const int* perm, const void* D, int form,
+                       const viem::FormParams* f, int f_bytes,
+                       float* scratch, int nb, float* out, void* stream) {
+  if (E < 0 || nb < 1 || nb > viem::kMaxBlocks ||
+      f_bytes != static_cast<int>(sizeof(viem::FormParams)) ||
+      f->nlev < 0 || f->nlev > viem::kMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (form) {
     case viem::kTree:
-      viem::launch<viem::kTree>(eu, ev, ew, E, perm, D, f, partials, nb, out, s);
+      viem::launch<viem::kTree>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
       break;
     case viem::kTorus:
-      viem::launch<viem::kTorus>(eu, ev, ew, E, perm, D, f, partials, nb, out, s);
+      viem::launch<viem::kTorus>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
       break;
     case viem::kMatF32:
-      viem::launch<viem::kMatF32>(eu, ev, ew, E, perm, D, f, partials, nb, out, s);
+      viem::launch<viem::kMatF32>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
       break;
     case viem::kMatI8:
-      viem::launch<viem::kMatI8>(eu, ev, ew, E, perm, D, f, partials, nb, out, s);
+      viem::launch<viem::kMatI8>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
       break;
     case viem::kMatI16:
-      viem::launch<viem::kMatI16>(eu, ev, ew, E, perm, D, f, partials, nb, out, s);
+      viem::launch<viem::kMatI16>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -8,11 +8,12 @@ a stale one never loaded.  :func:`build` starts one ``nvcc`` per source,
 all at once, and returns their ``-Xptxas -v`` reports (registers, shared
 memory, spills).
 
-:class:`CudaKernel` is the handle a wrapper launches through: it loads
-the library with ``ctypes``, passes device pointers and PyTorch's
-current stream, raises on a non-zero ``cudaError_t`` from the launch,
-and counts its launches (``launches`` — a plain integer that callers
-reset and read to prove a path went through the kernel).
+:func:`load` loads a library with ``ctypes`` once per process.
+:class:`CudaKernel` is the handle a wrapper launches through: it passes
+device pointers and PyTorch's current stream, raises on a non-zero
+``cudaError_t`` from the launch, and counts its launches (``launches``
+— a plain integer that callers reset and read to prove a path went
+through the kernel).
 
 Nothing here runs at import: this module is imported on machines with
 no CUDA toolkit.
@@ -27,7 +28,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CudaKernel", "build", "build_dir", "library_path"]
+__all__ = ["CudaKernel", "build", "build_dir", "library_path", "load",
+           "raise_on_error"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _ARCH = "arch=compute_90a,code=sm_90a"
@@ -97,6 +99,29 @@ def build(names) -> dict:
     return reports
 
 
+_LIBRARIES: dict = {}
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The library of ``csrc/<source>.cu``, built if missing and loaded
+    once per process, with ``viem_error_string`` bound."""
+    lib = _LIBRARIES.get(source)
+    if lib is None:
+        build([source])
+        lib = ctypes.CDLL(str(library_path(source)))
+        lib.viem_error_string.argtypes = [ctypes.c_int]
+        lib.viem_error_string.restype = ctypes.c_char_p
+        _LIBRARIES[source] = lib
+    return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry returned a non-zero ``cudaError_t``."""
+    if rc != 0:
+        msg = lib.viem_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what} failed: cudaError {rc} ({msg})")
+
+
 class CudaKernel:
     """One C entry point of one ``csrc`` library, with a launch count.
 
@@ -115,13 +140,10 @@ class CudaKernel:
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            build([self.source])
-            lib = ctypes.CDLL(str(library_path(self.source)))
+            lib = load(self.source)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            lib.viem_error_string.argtypes = [ctypes.c_int]
-            lib.viem_error_string.restype = ctypes.c_char_p
             self._lib, self._fn = lib, fn
         return self._lib
 
@@ -129,9 +151,5 @@ class CudaKernel:
         """Call the entry (arguments as ``argtypes`` says, the stream
         last) and raise if the launch was refused or failed."""
         lib = self.library()
-        rc = self._fn(*args)
-        if rc != 0:
-            msg = lib.viem_error_string(rc).decode(errors="replace")
-            raise RuntimeError(f"{self.name} kernel launch failed: "
-                               f"cudaError {rc} ({msg})")
+        raise_on_error(lib, self._fn(*args), f"{self.name} kernel launch")
         self.launches += 1

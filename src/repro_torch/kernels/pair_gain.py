@@ -36,8 +36,8 @@ import ctypes
 
 from .config import KernelConfig
 from .cuda import CudaKernel
-from .qap_objective import (check_cuda, distance_form, form_args,
-                            qap_objective_edges)
+from .qap_objective import (check_cuda, distance_form, form_params,
+                            on_device, qap_objective_edges)
 
 __all__ = ["PAIR_GAIN_KERNEL", "distance_form", "edge_objective",
            "pair_gains", "pair_gains_plain"]
@@ -48,9 +48,8 @@ PAIR_GAIN_KERNEL = CudaKernel(
     "pair_gains", "pair_gain", "viem_pair_gains",
     [_P, _P, _I,                # nbr, wgt, K
      _P, _P, _P, _I,            # perm, us, vs, P
-     _P,                        # D
-     _I, _I, _I,                # form, nlev, n_pe
-     _P, _I, _P, _I,            # ip, n_ip, fp, n_fp
+     _P, _I,                    # D, form
+     _P, _I,                    # FormParams, its size
      _P,                        # out
      _P])                       # stream
 
@@ -143,14 +142,28 @@ def pair_gains(kind: str, params: tuple, nbr, wgt, perm, us, vs, D,
                          f"{tuple(nbr.shape)}, wgt {tuple(wgt.shape)}, "
                          f"perm {tuple(perm.shape)}, us {p}, "
                          f"vs {vs.shape[0]}")
-    form, nlev, n_pe, ip, n_ip, fp, n_fp = form_args(kind, params, D)
+    if k % 4 or nbr.data_ptr() % 16 or wgt.data_ptr() % 16:
+        nbr, wgt = _rows_by_fours(nbr, wgt)
+    form, f = form_params(kind, params, D)
     out = torch.empty(p, dtype=torch.float32, device=us.device)
-    with torch.cuda.device(us.device):
+    with on_device(us.device):
         stream = torch.cuda.current_stream(us.device).cuda_stream
         PAIR_GAIN_KERNEL.launch(
-            nbr.data_ptr(), wgt.data_ptr(), int(k), perm.data_ptr(),
-            us.data_ptr(), vs.data_ptr(), p, D.data_ptr(), form, nlev,
-            n_pe, ctypes.addressof(ip), n_ip, ctypes.addressof(fp), n_fp,
-            out.data_ptr(), stream)
+            nbr.data_ptr(), wgt.data_ptr(), int(nbr.shape[1]),
+            perm.data_ptr(), us.data_ptr(), vs.data_ptr(), p, D.data_ptr(),
+            form, ctypes.addressof(f), ctypes.sizeof(f), out.data_ptr(),
+            stream)
     return out
 
+
+def _rows_by_fours(nbr, wgt):
+    """Fresh (hence 16-byte aligned) copies of the rows, K padded up to a
+    multiple of 4 as ``DeviceGraph.pad_to`` pads: the row's own vertex
+    id with weight 0, an inert slot.  The kernel reads rows four slots
+    at a time."""
+    import torch
+    n, k = nbr.shape
+    pad = -k % 4
+    ids = torch.arange(n, dtype=nbr.dtype, device=nbr.device)
+    return (torch.cat([nbr, ids[:, None].expand(n, pad)], dim=1),
+            torch.cat([wgt, wgt.new_zeros((n, pad))], dim=1))

@@ -16,35 +16,56 @@ JAX package's three Pallas reductions in ``kernels/qap_objective.py`` and
 fuses the Π gather their wrapper did), on CPU tensors it runs the plain
 PyTorch version :func:`qap_objective_plain`.  Both take the padded edge
 tensors (eu, ev, ew) and the permutation; padding edges (0, 0, w = 0)
-are inert.
+are inert.  The kernel takes a call in one launch, and its distance
+form as one :class:`FormParams` struct, built once per form and cached
+(:func:`form_params`), with a fixed-point reciprocal (:func:`reciprocal`)
+for every divisor of the closed forms, so it divides by nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import numpy as np
 
 from .cuda import CudaKernel
 
-__all__ = ["OBJECTIVE_KERNEL", "distance_form", "form_args",
-           "qap_objective_edges", "qap_objective_plain"]
+__all__ = ["OBJECTIVE_KERNEL", "FormParams", "distance_form",
+           "form_params", "qap_objective_edges", "qap_objective_plain",
+           "reciprocal"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+MAX_LEVELS = 16                 # csrc/distance.cuh: kMaxLevels
+_BLOCK = 256                    # csrc/qap_objective.cu: kBlock
+_MAX_BLOCKS = 1024              # csrc/qap_objective.cu: kMaxBlocks
+_FORMS = {"tree": 0, "torus": 1}
+_MATRIX_FORMS = {"float32": 2, "int8": 3, "int16": 4}
+
+
+class Recip(ctypes.Structure):
+    """``csrc/distance.cuh:Recip``: p // s == (p · mul) >> shift."""
+    _fields_ = [("mul", ctypes.c_uint32), ("shift", ctypes.c_uint32)]
+
+
+class FormParams(ctypes.Structure):
+    """``csrc/distance.cuh:FormParams``, field for field: the static
+    distance parameters both kernels take by value."""
+    _fields_ = [("nlev", ctypes.c_int), ("n_pe", ctypes.c_int),
+                ("ip", ctypes.c_int * (MAX_LEVELS + 1)),
+                ("rc", Recip * (MAX_LEVELS + 1)),
+                ("fp", ctypes.c_float * MAX_LEVELS)]
+
 
 OBJECTIVE_KERNEL = CudaKernel(
     "qap_objective", "qap_objective", "viem_qap_objective",
     [_P, _P, _P, _I,            # eu, ev, ew, E
-     _P, _P,                    # perm, D
-     _I, _I, _I,                # form, nlev, n_pe
-     _P, _I, _P, _I,            # ip, n_ip, fp, n_fp
-     _P, _I, _P,                # partials, nb, out
+     _P, _P, _I,                # perm, D, form
+     _P, _I,                    # FormParams, its size
+     _P, _I, _P,                # scratch, nb, out
      _P])                       # stream
-
-_BLOCK = 256                    # threads per block (viem_objective_block)
-_MAX_BLOCKS = 1024
-_FORMS = {"tree": 0, "torus": 1}
-_MATRIX_FORMS = {"float32": 2, "int8": 3, "int16": 4}
 
 
 # ------------------------------------------------------------ distance forms
@@ -114,36 +135,75 @@ def qap_objective_plain(kind: str, params: tuple, eu, ev, ew, perm, D):
 
 
 # ------------------------------------------------------------------ kernel
-def form_args(kind: str, params: tuple, D) -> tuple:
-    """The C entries' static distance arguments: ``(form, nlev, n_pe,
-    ip array, n_ip, fp array, n_fp)``; the arrays are ctypes buffers the
-    caller keeps alive across the call."""
+def reciprocal(s: int) -> tuple:
+    """``(mul, shift)`` with ``p // s == (p * mul) >> shift`` for every
+    0 <= p < 2**31, ``mul < 2**32``: the kernels' division by a static
+    divisor 1 <= s < 2**31 (Granlund and Montgomery, PLDI 1994).
+
+    ``shift`` is the largest (<= 63) that keeps ``mul = ceil(2**shift /
+    s)`` below 2**32.  With ``mul·s = 2**shift + e``, 0 <= e < s, the
+    product is p/s + p·e/(s·2**shift), and its floor is p // s exactly
+    when p·e < (s − p % s)·2**shift; the worst case p % s = s − 1 needs
+    p·e < 2**shift, which the largest p, 2**31 − 1, is checked against
+    here (it holds for every s: a larger shift would overflow mul, so
+    2**shift > (2**32 − 1)·s / 2 > (2**31 − 1)·(s − 1))."""
+    s = int(s)
+    if not 1 <= s < 2 ** 31:
+        raise ValueError(f"divisor {s} outside [1, 2**31)")
+    shift = 63
+    while -(-(1 << shift) // s) >= 1 << 32:
+        shift -= 1
+    mul = -(-(1 << shift) // s)
+    if (2 ** 31 - 1) * (mul * s - (1 << shift)) >= 1 << shift:
+        raise AssertionError(f"reciprocal of {s} is not exact below 2**31")
+    return mul, shift
+
+
+def _divisors(kind: str, params: tuple) -> dict:
+    """{FormParams.rc index: divisor}: a tree's strides[l] for
+    l = 1 .. nlev-1; a torus' strides dims[0]·…·dims[a-1], a = 1 .. nlev."""
     if kind == "tree":
-        strides, dists = params
-        ip, fp, nlev = list(strides), list(dists), len(dists)
-        form = _FORMS[kind]
-    elif kind == "torus":
-        dims, weights = params
-        ip, fp, nlev = list(dims), list(weights), len(dims)
-        form = _FORMS[kind]
+        return {lvl: int(params[0][lvl]) for lvl in range(1, len(params[1]))}
+    stride, out = 1, {}
+    for a, d in enumerate(params[0], start=1):
+        stride *= int(d)
+        out[a] = stride
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _form_params(kind: str, params: tuple, dtype: str, n_pe: int) -> tuple:
+    if kind in _FORMS:
+        ip, fp = list(params[0]), list(params[1])
+        nlev, form = len(fp) if kind == "tree" else len(ip), _FORMS[kind]
     elif kind == "matrix":
-        dtype = str(D.dtype).replace("torch.", "")
         if dtype not in _MATRIX_FORMS:
-            raise ValueError(f"matrix distance table dtype {D.dtype} is not "
+            raise ValueError(f"matrix distance table dtype {dtype} is not "
                              f"one of {sorted(_MATRIX_FORMS)}")
-        if D.dim() != 2 or D.shape[0] != D.shape[1]:
-            raise ValueError(f"matrix distance table must be square, got "
-                             f"{tuple(D.shape)}")
         ip, fp, nlev, form = [], [], 0, _MATRIX_FORMS[dtype]
     else:
         raise ValueError(f"unknown kernel_params kind {kind!r}")
-    if len(ip) > 17 or len(fp) > 16:
+    if len(ip) > MAX_LEVELS + 1 or len(fp) > MAX_LEVELS:
         raise ValueError(f"{kind} distance form has {nlev} levels; the "
-                         f"CUDA kernels take at most 16")
-    ip_arr = (ctypes.c_int * max(len(ip), 1))(*[int(x) for x in ip])
-    fp_arr = (ctypes.c_float * max(len(fp), 1))(*[float(x) for x in fp])
-    n_pe = int(D.shape[0]) if kind == "matrix" else 0
-    return form, nlev, n_pe, ip_arr, len(ip), fp_arr, len(fp)
+                         f"CUDA kernels take at most {MAX_LEVELS}")
+    f = FormParams(nlev=nlev, n_pe=n_pe if kind == "matrix" else 0)
+    f.ip[:] = [int(x) for x in ip] + [1] * (MAX_LEVELS + 1 - len(ip))
+    f.fp[:] = [float(x) for x in fp] + [0.0] * (MAX_LEVELS - len(fp))
+    rcs = {} if kind == "matrix" else _divisors(kind, params)
+    for i in range(MAX_LEVELS + 1):
+        f.rc[i].mul, f.rc[i].shift = reciprocal(rcs.get(i, 1))
+    return form, f
+
+
+def form_params(kind: str, params: tuple, D) -> tuple:
+    """``(form id, FormParams)`` for the C entries, built once per (kind,
+    params, dtype and size of D) and cached: the struct the kernels take
+    by value, with a fixed-point reciprocal for every divisor."""
+    if kind == "matrix" and (D.dim() != 2 or D.shape[0] != D.shape[1]):
+        raise ValueError(f"matrix distance table must be square, got "
+                         f"{tuple(D.shape)}")
+    return _form_params(kind, params, str(D.dtype).replace("torch.", ""),
+                        int(D.shape[0]))
 
 
 def check_cuda(name: str, device, **tensors) -> None:
@@ -161,28 +221,53 @@ def check_cuda(name: str, device, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be {want}, got {t.dtype}")
 
 
+def on_device(device):
+    """A context in which ``device`` is the current device (the C
+    entries launch on the current one); a no-op when it already is."""
+    import torch
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device, stream: int):
+    """The K1 launch's scratch for one stream: ``_MAX_BLOCKS`` partials
+    and the ticket counter, zero-filled once; every launch leaves the
+    counter 0 again."""
+    import torch
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = torch.zeros(_MAX_BLOCKS + 1,
+                                          dtype=torch.float32,
+                                          device=device)
+    return buf
+
+
 def qap_objective_edges(kind: str, params: tuple, eu, ev, ew, perm, D):
     """J = Σ w_e · D(perm[eu_e], perm[ev_e]) as a 0-d float32 tensor on
-    the inputs' device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  eu, ev, perm int32; ew float32; D the
-    matrix table (float32/int8/int16) or a dummy for tree/torus."""
+    the inputs' device: the CUDA kernel (one launch) for CUDA tensors,
+    the plain version for CPU tensors.  eu, ev, perm int32; ew float32;
+    D the matrix table (float32/int8/int16) or a dummy for tree/torus."""
     if not eu.is_cuda:
         return qap_objective_plain(kind, params, eu, ev, ew, perm, D)
     import torch
-    check_cuda("qap_objective", eu.device, eu=eu, ev=ev, ew=ew, perm=perm,
-               D=D)
+    dev = eu.device
+    check_cuda("qap_objective", dev, eu=eu, ev=ev, ew=ew, perm=perm, D=D)
     e = int(eu.shape[0])
     if ev.shape[0] != e or ew.shape[0] != e:
         raise ValueError("qap_objective: eu, ev, ew differ in length")
-    form, nlev, n_pe, ip, n_ip, fp, n_fp = form_args(kind, params, D)
+    form, f = form_params(kind, params, D)
     nb = max(1, min(-(-e // _BLOCK), _MAX_BLOCKS))
-    partials = torch.empty(nb, dtype=torch.float32, device=eu.device)
-    out = torch.empty((), dtype=torch.float32, device=eu.device)
-    with torch.cuda.device(eu.device):
-        stream = torch.cuda.current_stream(eu.device).cuda_stream
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    with on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         OBJECTIVE_KERNEL.launch(
             eu.data_ptr(), ev.data_ptr(), ew.data_ptr(), e,
-            perm.data_ptr(), D.data_ptr(), form, nlev, n_pe,
-            ctypes.addressof(ip), n_ip, ctypes.addressof(fp), n_fp,
-            partials.data_ptr(), nb, out.data_ptr(), stream)
+            perm.data_ptr(), D.data_ptr(), form, ctypes.addressof(f),
+            ctypes.sizeof(f), _scratch(dev, stream).data_ptr(), nb,
+            out.data_ptr(), stream)
     return out

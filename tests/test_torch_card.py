@@ -54,6 +54,34 @@ TREE = ((1, 8, 64, 512), (1.0, 10.0, 100.0))
 TORUS = ((8, 8, 8), (1.0, 2.0, 3.0))
 FORMS = ["tree", "torus", "f32", "f32real", "int8", "int16"]
 
+# The division-free oracle's cases (K1, K2; tests/test_torch_oracle.py
+# emulates the same arithmetic on the CPU): a tree of the most levels the
+# kernels take (16), strides 3·7·2·… (none a power of two above 2) and
+# n_pe = 2,134,623,456, within 0.6 % of 2^31, the top of the range its
+# reciprocals are exact for; a tree of odd strides; a torus of odd axes.
+TREE16_FACTORS = (3, 7, 2, 7, 3, 7, 2, 7, 3, 7, 2, 7, 3, 7, 2, 2)
+TREE16 = (tuple(int(np.prod(TREE16_FACTORS[:i], dtype=np.int64))
+                for i in range(17)),
+          tuple(float(2 * lvl + 1) for lvl in range(16)))
+ORACLE_CASES = {"tree16-top": ("tree", TREE16),
+                "tree-odd": ("tree", ((1, 3, 15, 105, 945),
+                                      (1.0, 10.0, 100.0, 1000.0))),
+                "torus-odd": ("torus", ((7, 9, 11), (1.0, 2.0, 3.0)))}
+
+
+def oracle_pes(kind, params, n, seed):
+    """n PE ids for an oracle case: near the top of the range at every
+    scale (so pairs meet at every tree level), the largest PE, and
+    uniform ones."""
+    n_pe = (params[0][-1] if kind == "tree"
+            else int(np.prod(params[0], dtype=np.int64)))
+    rng = np.random.default_rng(seed)
+    scale = 10 ** rng.integers(0, 10, n)
+    pes = n_pe - 1 - rng.integers(0, np.minimum(scale, n_pe))
+    pes[::3] = rng.integers(0, n_pe, len(pes[::3]))
+    pes[0] = n_pe - 1
+    return pes.astype(np.int32)
+
 
 @pytest.fixture
 def cuda():
@@ -152,6 +180,75 @@ def test_pair_gain_kernel_equals_plain(cuda, name):
     scale = (rowsum[us.long()] + rowsum[vs.long()]) * 2.0 * bound
     _close(got, want, scale, real)
     assert torch.all(got[len(pairs) - 2:] == 0.0)   # padding pairs
+
+
+def _oracle_bound(kind, params):
+    """The largest distance of a closed form."""
+    if kind == "tree":
+        return max(params[1])
+    return sum(w * (d // 2) for d, w in zip(*params))
+
+
+@pytest.mark.parametrize("real", [False, True], ids=["integer", "real"])
+@pytest.mark.parametrize("case", sorted(ORACLE_CASES))
+def test_pair_gain_kernel_division_free_forms(cuda, case, real):
+    """K2 on the oracle cases, over ELL rows of K = 6 (grid3d's degree,
+    not a multiple of 4: the wrapper pads them to 8)."""
+    kind, params = ORACLE_CASES[case]
+    g = tc.grid3d(8, 8, 8)
+    if real:
+        u, v, _ = g.edge_list()
+        w = np.random.default_rng(4).random(len(u)) * 4.0 + 0.5
+        g = tc.graph.from_edges(N, u, v, w)
+    dg = tc.DeviceGraph.from_comm(g, device=cuda, pad_deg_to=1)
+    assert dg.max_deg == 6
+    pairs = np.concatenate([communication_pairs(g, 3),
+                            np.array([[5, 5], [0, 0]])])
+    us, vs = tc.device_pairs(pairs, device=cuda)
+    perm = torch.from_numpy(oracle_pes(kind, params, N, seed=2)).to(cuda)
+    D = torch.zeros((1, 1), device=cuda)
+    args = (kind, params, dg.nbr, dg.wgt, perm, us, vs, D)
+    before = PAIR_GAIN_KERNEL.launches
+    got = pair_gains(*args)
+    assert PAIR_GAIN_KERNEL.launches == before + 1
+    want = pair_gains_plain(*args)
+    torch.cuda.synchronize()
+    rowsum = dg.wgt.abs().sum(dim=1)
+    scale = ((rowsum[us.long()] + rowsum[vs.long()]) * 2.0
+             * _oracle_bound(kind, params))
+    _close(got, want, scale, real)
+    assert torch.all(got[len(pairs) - 2:] == 0.0)   # padding pairs
+
+
+@pytest.mark.parametrize("e", [70000, 300000])
+@pytest.mark.parametrize("case", sorted(ORACLE_CASES))
+def test_objective_kernel_division_free_forms(cuda, case, e):
+    """K1 on the oracle cases at E = 70,000 (274 blocks, then the last
+    block's sum of their partials) and 300,000 (the grid capped at 1024
+    blocks, each thread over several edges): integer weights exactly
+    where every partial sum is an integer below 2^24 (the contract's
+    condition; the odd tree's distances reach 1000, so its sums pass it
+    and are held as real data), real weights to rtol 1e-6 of Σ|w·d|,
+    one launch a call, two calls bit-equal."""
+    kind, params = ORACLE_CASES[case]
+    rng = np.random.default_rng(e)
+    t = lambda a, dt=torch.int32: torch.from_numpy(  # noqa: E731
+        np.asarray(a)).to(cuda, dt)
+    pes = t(oracle_pes(kind, params, N, seed=e))
+    eu, ev = t(rng.integers(0, N, e)), t(rng.integers(0, N, e))
+    D = torch.zeros((1, 1), device=cuda)
+    for w, real in ((rng.integers(1, 3, e) * 1.0, False),
+                    (rng.random(e) * 3.0, True)):
+        args = (kind, params, eu, ev, t(w, torch.float32), pes, D)
+        before = OBJECTIVE_KERNEL.launches
+        got = qap_objective_edges(*args)
+        again = qap_objective_edges(*args)
+        assert OBJECTIVE_KERNEL.launches == before + 2
+        want = qap_objective_plain(*args)
+        scale = float(qap_objective_plain(kind, params, eu, ev,
+                                          args[4].abs(), pes, D))
+        _close(got, want, scale, real or scale >= 2 ** 24)
+        assert torch.equal(got, again)              # deterministic
 
 
 @pytest.mark.parametrize("machine", ["tree", "matrix-int8"])
@@ -349,6 +446,55 @@ def test_mapper_gain_matrix_pins_no_more_than_the_caller_holds(cuda):
     mapper, g = sizes[1]
     G = mapper.gain_matrix(g, rng.permutation(g.n))
     assert _pinned_bytes() - base <= block(G)
+
+
+def test_gain_call_leaves_other_pinned_blocks_cached(cuda):
+    """A page-locked block that other code cached in PyTorch's caching
+    host allocator is still cached after gain calls at two sizes, with
+    results held and dropped; the port's own blocks (``core/pinned.py``)
+    stay within the arrays the caller holds, plus at most one free block
+    of each size served."""
+    import gc
+
+    from repro_torch.core import pinned
+    from repro_torch.core.plan import empty_host_cache
+    sizes = [(tc.Mapper(tc.Hierarchy(s, (1.0, 10.0, 100.0)),
+                        tc.MappingSpec(backend="pallas")), tc.grid3d(*s))
+             for s in ((8, 8, 8), (10, 10, 10))]
+    rng = np.random.default_rng(5)
+    gc.collect()
+    empty_host_cache()
+    other = torch.empty(1 << 20, dtype=torch.uint8, pin_memory=True)
+    del other                           # cached by PyTorch, not in use
+    ours = pinned.stats()
+    theirs = torch.cuda.host_memory_stats()
+    assert theirs["allocated_bytes.current"] >= 1 << 20
+    held, served = [], set()
+    for step in range(9):
+        mapper, g = sizes[step % 2]
+        G = mapper.gain_matrix(g, rng.permutation(g.n))
+        served.add(G.nbytes)
+        live = held + [G]
+        if step % 3 == 0:
+            held.append(G)
+        now = torch.cuda.host_memory_stats()
+        for key in ("allocated_bytes.current", "num_host_free",
+                    "num_host_alloc"):
+            assert now[key] == theirs[key], (step, key)
+        st = pinned.stats()
+        in_use = st["in_use_bytes"] - ours["in_use_bytes"]
+        assert in_use == sum(a.nbytes for a in live), step
+        assert st["free_blocks"] <= len(served) + ours["free_blocks"]
+        assert (st["pinned_bytes"] - ours["pinned_bytes"]
+                <= sum(a.nbytes for a in live) + sum(served)), step
+        del G, live
+    allocs = pinned.stats()["host_allocs"]
+    held.clear()
+    mapper, g = sizes[0]
+    G = mapper.gain_matrix(g, rng.permutation(g.n))  # reuses a free block
+    assert pinned.stats()["host_allocs"] == allocs
+    assert torch.cuda.host_memory_stats()["num_host_free"] == \
+        theirs["num_host_free"]
 
 
 def test_swap_gain_wrapper_rejects_mixed_devices(cuda):
