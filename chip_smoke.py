@@ -25,7 +25,14 @@ one JSON line after each, failing loudly on the first fault:
               time per call (100 calls, no synchronize), the back-to-back
               figure of earlier runs, the CUDA kernels per call and their
               durations (torch.profiler), beside the plain version and
-              the bound.
+              the bound.  Then K2 (tree form) and K1 with LANES = 4 lanes
+              in one launch, each lane its own structure at the main
+              shape (the main graph, then three seeded relabellings of
+              it: their own ELL rows, edges and pairs) with seeded
+              permutations and real weights: each lane bit-equal to a
+              single launch on its arrays; the device time per launch
+              beside the 4 lanes' single launches and the bound at 4×
+              the bytes.
 4. main     — ``Mapper(4:16:64 / 1:10:100, MappingSpec(engine="device",
               backend="pallas"), device="cuda").map(grid3d(16, 16, 16))``
               with the launch counts set to 0 just before and read just
@@ -35,7 +42,34 @@ one JSON line after each, failing loudly on the first fault:
 5. forms    — the same path on a torus and on a fat-tree distance matrix
               packed to int8, at n = 1024, each equal to the CPU
               refinement from the same start.
-6. gain     — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
+6. multilevel — the main call with ``multilevel=MultilevelSpec(),
+              preconfiguration="eco"`` (4 levels, coarsen_min 64: n =
+              4096 → 512): every level's refinement equals the plain
+              versions' on the CPU from its captured start and the JAX
+              package's levels (ML_REFERENCE_LEVELS: no level moves),
+              every sync of each level's refinement and contraction is a
+              counted read; a bijection, jf equal to the host float64
+              objective.
+              Prints the construction, pyramid and per-level refinement
+              seconds, K1/K2 launches per level, the coarse tables'
+              packing and jf beside the main map's.
+7. batch    — ``map_many`` of 4 graphs at n = 4096 on the main machine
+              under the same spec (3 stencils with seeded integer weights
+              in [1, 100], one random geometric graph of about the
+              stencil's mean degree), then a flat ``map_many`` of 4 at n
+              = 1024 on the torus form: each result equal to its single
+              card map, and the multilevel batch's levels up to n = 1024
+              (which do swap) equal to the CPU refinement from the same
+              starts; wall time per graph against the singles, K1/K2
+              launches against the singles' sum, counted reads per
+              sweep, each call's syncs all counted.
+8. warm     — ``MappingPlan.execute_warm`` on the main map's result
+              after a seeded drift (5 % of the vertices gain an edge to a
+              seeded partner), the pairs touching them active: equal to
+              the CPU warm refinement from the same incumbent, the
+              incumbent unchanged, P unchanged, the inactive region
+              frozen.
+9. gain     — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
               the main map's graph, machine and final permutation, with
               the launch counts set to 0 just before and read just
               after: G must equal the plain version on the card, the
@@ -57,7 +91,7 @@ one JSON line after each, failing loudly on the first fault:
               largest of 5) with each result dropped and with the
               previous one held, with the page-locked blocks each call
               made, freed and reused, PyTorch's and the port's own.
-7. flash    — holds K4 (flash attention) against its plain version on
+10. flash   — holds K4 (flash attention) against its plain version on
               the card at the serve shape (B 4, T 2048, H 32, KV 8, hd
               128, bf16) and at starcoder2-7b's windowed shape (B 1, T
               8192, H 36, KV 4, hd 128, window 4096, bf16), and on small
@@ -68,7 +102,7 @@ one JSON line after each, failing loudly on the first fault:
               K4, its plain version and ``scaled_dot_product_attention``
               (the yardstick; the port never calls it) beside the bound,
               at both shapes in bf16 and at the serve shape in float32.
-8. serve    — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
+11. serve   — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
               at the full published config (40 layers, random weights)
               with the launch counts set to 0 just before and read just
               after: K4's bf16 route must launch once per layer of the
@@ -89,7 +123,10 @@ its path — the main map for K1 and K2, the gain call for K3, the serve
 call for K4's bf16 route and the float32 prefill check for its float32
 route —
 max |kernel − plain|, ms, plain_ms, bound_ms, bound_by, library_ms; K1's
-and K2's ms is the device time per launch); the last is ``{"ok": true,
+and K2's ms is the device time per launch, and they add
+``batch_launches``, their launches in the multilevel batch's
+``map_many``, and ``batch_ms``, the device time of one launch of 4
+lanes); the last is ``{"ok": true,
 "device": {...}}``.  Without a card, or outside a checkout, it exits
 non-zero and prints no result.  ``--stop-after build|kernels`` runs the
 phases up to that one and stops, with neither line.
@@ -124,6 +161,33 @@ SIZE = {"hierarchy": "4:16:64", "distances": "1:10:100", "side": 16,
         "fattree": (4, 16, 64), "forms_fattree": (4, 16, 16),
         "edges": 11520, "pairs": 1824720, "ell": 8}
 DEVICE = "cuda"
+# lanes of the lane-axis kernel checks and of the batch cells
+LANES = 4
+# the batch cells: LANES - 1 stencils with seeded integer weights in
+# [1, 100] and one random geometric graph whose radius puts its mean
+# degree near the stencil's (16^3: 5.625; 16·16·4: 5.25); the flat
+# batch runs on the torus form at n = 1024
+BATCH = {"weights": (1, 100), "seed": 31, "radius": 0.0215,
+         "flat_radius": 0.0425}
+# the warm cell's drift: a seeded share of the vertices turn hot, each
+# gaining one edge of this weight to a seeded partner, and the pairs
+# touching them are active; its sweep budget (the CPU comparison takes
+# ~1.5 s a sweep at n = 4096)
+WARM = {"share": 0.05, "factor": 8.0, "seed": 17, "max_sweeps": 16}
+# the multilevel cell's levels as the JAX package's V-cycle gives them on
+# the CPU, coarsest first: (start objective, refined objective, swaps).
+# The projected start is already a local optimum of every level, so the
+# card's per-level comparison with the CPU compares unmoved permutations;
+# these hold the card to the reference's word that nothing should move.
+# tests/test_torch_multilevel.py::test_eco_main_cell_levels_equal_reference
+# holds the reference and the port's CPU V-cycle to the same values.
+ML_REFERENCE_LEVELS = ((277680.0, 277680.0, 0), (298160.0, 298160.0, 0),
+                       (300208.0, 300208.0, 0), (302256.0, 302256.0, 0))
+# the multilevel batch's levels up to this n are also refined again on
+# the CPU from the card's captured starts (the finer ones take minutes
+# there); their lanes do move, so that comparison is not of unmoved
+# permutations
+BATCH_CPU_MAX_N = 1024
 
 
 def emit(obj) -> None:
@@ -499,8 +563,92 @@ def phase_kernels(forms):
               bound_ms=main["bound_ms"], bound_by=main["bound_by"])
     for rec in (k1, k2):
         rec["library_ms"] = None        # no single PyTorch call computes it
+    lane_axis(forms, k1, k2, g, dg, us, vs, eu, ev)
     emit({"phase": "kernels", "qap_objective": k1, "pair_gains": k2})
     return k1, k2
+
+
+def lane_axis(forms, k1, k2, g, dg, us, vs, eu, ev):
+    """K2 in the tree form and K1 at the main shape with LANES lanes in
+    one launch each (the batched sweep's calls).  Every lane has its own
+    structure: lane 0 is the main graph and each other lane the main
+    graph with its vertices relabelled by a seeded permutation (its own
+    ELL rows, edge list and candidate pairs, the main shape's K, E and
+    P), with seeded permutations and real weights a lane.  Each lane
+    bit-equal to a single launch on that lane's arrays; the device time
+    per launch beside the sum of the lanes' single launches (the
+    relabelled lanes lose the stencil's locality, so they are timed
+    each) and the bound at LANES times the bytes.  Adds ``batch_ms`` (and the rest under ``lanes``) to
+    ``k1`` and ``k2``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DeviceGraph, from_edges
+    from repro_torch.kernels import pair_gains, qap_objective_edges
+    from repro_torch.kernels.pad import pad_edge_arrays
+    dev = torch.device(DEVICE)
+    b, n = LANES, g.n
+    rng = np.random.default_rng(23)
+    kind, params, D = form_of(*forms["tree"], dev)
+    u, v, w = g.edge_list()
+    lanes = [(dg, us, vs, eu, ev)]
+    for _ in range(b - 1):
+        relabel = rng.permutation(n)
+        gl = from_edges(n, relabel[u], relabel[v], w)
+        dgl = DeviceGraph.from_comm(gl, device=dev)
+        ul, vl, _ = gl.edge_list()
+        eul, evl, _ = pad_edge_arrays(ul, vl, np.ones(len(ul)), device=dev)
+        r = torch.from_numpy(relabel.astype(np.int32)).to(dev)
+        lanes.append((dgl, r[us.long()], r[vs.long()], eul, evl))
+    check(len({(x.max_deg, int(e.shape[0]), int(a.shape[0]))
+               for x, a, _, e, _ in lanes}) == 1,
+          "lane axis: the relabelled lanes left the main shape")
+    perms = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(b)])
+                             .astype(np.int32)).to(dev)
+    factor = torch.from_numpy(rng.random((b,) + tuple(dg.wgt.shape))
+                              .astype(np.float32) * 3.0 + 0.5).to(dev)
+    wgt = (torch.stack([x.wgt for x, *_ in lanes]) * factor).contiguous()
+    nbr = torch.stack([x.nbr for x, *_ in lanes]).contiguous()
+    us_b = torch.stack([x for _, x, *_ in lanes]).contiguous()
+    vs_b = torch.stack([x for _, _, x, *_ in lanes]).contiguous()
+    e = int(eu.shape[0])
+    ew_b = torch.from_numpy(rng.random((b, e)).astype(np.float32) * 3.0
+                            ).to(dev)
+    ew_b[:, g.num_edges:] = 0.0                     # padding stays inert
+    eu_b = torch.stack([x for *_, x, _ in lanes]).contiguous()
+    ev_b = torch.stack([x for *_, x in lanes]).contiguous()
+    p = int(us.shape[0])
+    cases = {
+        "pair_gains": (
+            lambda: pair_gains(kind, params, nbr, wgt, perms, us_b, vs_b, D),
+            lambda i: pair_gains(kind, params, nbr[i], wgt[i], perms[i],
+                                 us_b[i], vs_b[i], D),
+            # a lane's bytes as the single launch counts them
+            (nbytes(us, vs, dg.nbr, dg.wgt, perms[0]) + p * 4,
+             p * 2.0 * dg.max_deg * 3.0), k2),
+        "qap_objective": (
+            lambda: qap_objective_edges(kind, params, eu_b, ev_b, ew_b,
+                                        perms, D),
+            lambda i: qap_objective_edges(kind, params, eu_b[i], ev_b[i],
+                                          ew_b[i], perms[i], D),
+            (nbytes(eu, ev, ew_b[0], perms[0], D) + 4, e * 2.0), k1)}
+    for name, (batch, single, (lane_bytes, lane_ops), rec) in cases.items():
+        got = batch()
+        for i in range(b):
+            check(torch.equal(got[i], single(i)),
+                  f"{name}: lane {i} of {b} differs from its single launch")
+        ones = [device_ms(lambda i=i: single(i))["device_ms"]
+                for i in range(b)]
+        rec["lanes"] = dict(device_ms(batch), lanes=b,
+                            single_device_ms=ones[0],
+                            lane_single_device_ms=ones,
+                            singles_device_ms=sum(ones),
+                            bit_equal_to_singles=True,
+                            own_structure_a_lane=True)
+        rec["lanes"]["bound_ms"], rec["lanes"]["bound_by"] = bound(
+            b * lane_bytes, b * lane_ops)
+        rec["batch_ms"] = rec["lanes"]["device_ms"]
+        emit({"phase": "kernels", "kernel": name, "lanes": rec["lanes"]})
 
 
 # ------------------------------------------------------------ phase 4/5
@@ -608,7 +756,366 @@ def run_map(topo, g, label, compare_cpu):
     return out, perm, captured["pairs"]
 
 
-# ------------------------------------------------------------ phase 6
+# ------------------------------------------------------ phases 6-8
+def instrument(engines):
+    """Wrap each engine's ``refine_batch`` (which a single ``refine``
+    also goes through) to record every call: its inputs (copies of the
+    starts), its results, its seconds (ending in a synchronize), the
+    K1/K2 launches it made and the engine's sync counts after it.
+    Returns (the list the calls are appended to, a function that
+    restores the engines)."""
+    import numpy as np
+    import torch
+    calls, restore = [], []
+
+    def wrap(eng):
+        orig = eng.refine_batch
+
+        def recording(graphs, perms, pairs_list, **kw):
+            rec = {"engine": eng, "graphs": list(graphs),
+                   "perms0": [np.array(p) for p in perms],
+                   "pairs": [np.array(x) for x in pairs_list], "kw": kw}
+            before = read_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(graphs, perms, pairs_list, **kw)
+            torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t0
+            after = read_launches()
+            rec["launches"] = {k: after[k] - before[k] for k in MAP_KERNELS}
+            rec["syncs"] = dict(eng.last_syncs)
+            rec["stats"] = out
+            rec["perms_out"] = [np.array(p) for p in perms]  # in place
+            calls.append(rec)
+            return out
+        eng.refine_batch = recording
+        restore.append((eng, orig))
+
+    for eng in engines:
+        wrap(eng)
+
+    def undo():
+        for eng, orig in restore:
+            eng.refine_batch = orig
+    return calls, undo
+
+
+def cpu_equal(rec, label):
+    """Refine the captured starts again on the CPU (the plain versions)
+    with the same machine, budget, kernel configuration and arguments,
+    and hold the card's permutations, traces and swap counts to it.
+    Returns the CPU seconds."""
+    import numpy as np
+
+    from repro_torch.engine import RefinementEngine
+    eng = rec["engine"]
+    ref = RefinementEngine(eng.topology, max_sweeps=eng.max_sweeps,
+                           kernel_config=eng.kernel_config, device="cpu")
+    perms = [p.copy() for p in rec["perms0"]]
+    t0 = time.perf_counter()
+    stats = ref.refine_batch(rec["graphs"], perms, rec["pairs"], **rec["kw"])
+    secs = time.perf_counter() - t0
+    for i, (p_cpu, s_cpu, s_gpu) in enumerate(zip(perms, stats,
+                                                  rec["stats"])):
+        check(s_cpu.objective_trace == s_gpu.objective_trace and
+              s_cpu.swaps == s_gpu.swaps,
+              f"{label}: lane {i}: card and CPU traces/swaps differ")
+        check(np.array_equal(p_cpu, rec["perms_out"][i]),
+              f"{label}: lane {i}: card and CPU permutations differ")
+    return secs
+
+
+def check_counted(syncs, label):
+    """A counted scope's host syncs (an engine call's or a
+    contraction's): every one PyTorch's sync debug mode saw was a
+    counted read."""
+    check(syncs["observed"] == syncs["reads"],
+          f"{label}: {syncs['observed']} syncs observed against "
+          f"{syncs['reads']} counted reads")
+
+
+def ml_spec():
+    from repro_torch.core import MappingSpec, MultilevelSpec
+    return MappingSpec(engine="device", backend="pallas",
+                       multilevel=MultilevelSpec(), preconfiguration="eco")
+
+
+def phase_multilevel(topo, g, flat_jf):
+    """``Mapper(..., multilevel=MultilevelSpec(), preconfiguration="eco")
+    .map(g)`` at the main cell's n: every level's refinement equals the
+    plain versions' on the CPU from the same start, the result is a
+    bijection and jf the host float64 objective; the construction,
+    pyramid and per-level refinement seconds, the launches and syncs
+    per level, the coarse tables' packing and jf beside the flat map's."""
+    import torch
+
+    from repro_torch.core import Mapper, qap_objective
+    mapper = Mapper(topo, ml_spec(), device=DEVICE)
+    plan = mapper.lower_for(g)
+    calls, undo = instrument(plan.engines)
+    pyramid_s = {}
+    orig_pyramid = plan._pyramid
+
+    def timed_pyramid(g_, seed):
+        t0 = time.perf_counter()
+        out = orig_pyramid(g_, seed)
+        pyramid_s["seconds"] = time.perf_counter() - t0
+        return out
+    plan._pyramid = timed_pyramid
+    reset_launches()
+    t0 = time.perf_counter()
+    res = mapper.map(g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    undo()
+    plan._pyramid = orig_pyramid
+    perm = res.perm
+    check(sorted(perm.tolist()) == list(range(g.n)),
+          "multilevel: result is not a bijection")
+    jf_host = qap_objective(g, topo, perm)
+    check(res.final_objective == jf_host,
+          f"multilevel: jf {res.final_objective} != host {jf_host}")
+    check_launched(launches, MAP_KERNELS, "multilevel")
+    pyramid = orig_pyramid(g, plan.spec.seed)          # the cached one
+    check(len(calls) == len(pyramid) == len(plan.engines),
+          f"multilevel: {len(calls)} refinements for {len(pyramid)} "
+          f"levels")
+    levels = []
+    check([(st.initial_objective, st.final_objective, st.swaps)
+           for st in (rec["stats"][0] for rec in calls)]
+          == list(ML_REFERENCE_LEVELS),
+          "multilevel: the levels' objectives and swaps are not the "
+          "reference's")
+    # the V-cycle refines the coarsest level first
+    for rec, lvl in zip(calls, range(len(pyramid) - 1, -1, -1)):
+        stats = rec["stats"][0]
+        check_counted(rec["syncs"], f"multilevel level {lvl}")
+        if lvl:
+            check_counted(pyramid[lvl].syncs,
+                          f"multilevel contraction to level {lvl}")
+        levels.append({"level": lvl, "n": pyramid[lvl].graph.n,
+                       "pairs": len(rec["pairs"][0]),
+                       "refine_seconds": rec["seconds"],
+                       "launches": rec["launches"],
+                       "reads": rec["syncs"]["reads"],
+                       "syncs_observed": rec["syncs"]["observed"],
+                       "passes": rec["syncs"]["passes"],
+                       "swaps": stats.swaps,
+                       "j0": stats.initial_objective,
+                       "jf": stats.final_objective,
+                       "contraction_syncs": pyramid[lvl].syncs,
+                       "packing": plan.kernel_configs[lvl].dist_dtype
+                       or "float32",
+                       "cpu_refine_seconds": cpu_equal(
+                           rec, f"multilevel level {lvl}"),
+                       "equals_cpu": True, "equals_reference": True})
+    out = {"phase": "multilevel", "n": g.n,
+           "levels_built": len(pyramid),
+           "resolved": list(plan.spec.resolved_multilevel()),
+           "j0": res.initial_objective, "jf": res.final_objective,
+           "flat_jf": flat_jf, "jf_over_flat": res.final_objective / flat_jf,
+           "construction_seconds": res.construction_seconds,
+           "pyramid_seconds": pyramid_s.get("seconds"),
+           "search_seconds": res.search_seconds, "map_seconds": wall,
+           "launches": launches, "levels": levels,
+           "packing": [cfg.dist_dtype or "float32"
+                       for cfg in plan.kernel_configs]}
+    emit(out)
+    return out
+
+
+def batch_graphs(side_xy, side_z, radius, seed):
+    """LANES - 1 stencils with their own seeded integer weights and one
+    random geometric graph of the same n (mean degree near the
+    stencil's)."""
+    import numpy as np
+
+    from repro_torch.core import from_edges, grid3d, random_geometric
+    lo, hi = BATCH["weights"]
+    stencil = grid3d(side_xy, side_xy, side_z)
+    u, v, _ = stencil.edge_list()
+    rng = np.random.default_rng(seed)
+    graphs = [from_edges(stencil.n, u, v,
+                         rng.integers(lo, hi + 1, len(u)) * 1.0)
+              for _ in range(LANES - 1)]
+    graphs.append(random_geometric(stencil.n, radius, seed=seed))
+    return graphs
+
+
+def run_batch(topo, spec, graphs, label, cpu_max_n=0):
+    """``map_many`` of the graphs on the card, then each graph's single
+    card map: each batch result must equal its single map exactly.
+    Launch counts reset just before each and read just after; every
+    engine call's syncs must all be counted reads.  Each engine call of
+    the batch at n <= ``cpu_max_n`` is refined again on the CPU from its
+    captured starts and must equal it, and those calls must have swapped
+    something."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Mapper, qap_objective
+    mapper = Mapper(topo, spec, device=DEVICE)
+    bucket = mapper.bucket_of(graphs[0])
+    for g in graphs[1:]:
+        bucket = bucket.union(mapper.bucket_of(g))
+    plan = mapper.lower(bucket)
+    calls, undo = instrument(plan.engines)
+    reset_launches()
+    t0 = time.perf_counter()
+    many = mapper.map_many(graphs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    undo()
+    check_launched(launches, MAP_KERNELS, label)
+    reads = sum(c["syncs"]["reads"] for c in calls)
+    passes = sum(c["syncs"]["passes"] for c in calls)
+    for c in calls:
+        check(len(c["graphs"]) == len(graphs),
+              f"{label}: a level refined {len(c['graphs'])} of "
+              f"{len(graphs)} graphs in one call")
+        check_counted(c["syncs"], label)
+    compared = [c for c in calls if c["graphs"][0].n <= cpu_max_n]
+    cpu_s = [cpu_equal(c, f"{label} n = {c['graphs'][0].n}")
+             for c in compared]
+    cpu_swaps = [[st.swaps for st in c["stats"]] for c in compared]
+    if cpu_max_n:
+        check(compared and sum(map(sum, cpu_swaps)) > 0,
+              f"{label}: the levels held to the CPU swapped nothing")
+    singles, single_launches, single_s = [], {k: 0 for k in MAP_KERNELS}, []
+    for i, g in enumerate(graphs):
+        reset_launches()
+        t1 = time.perf_counter()
+        one = mapper.map(g)
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t1)
+        got = read_launches()
+        for k in MAP_KERNELS:
+            single_launches[k] += got[k]
+        b = many[i]
+        check(np.array_equal(b.perm, one.perm) and
+              b.final_objective == one.final_objective and
+              b.initial_objective == one.initial_objective and
+              b.search_stats.objective_trace ==
+              one.search_stats.objective_trace,
+              f"{label}: map_many result {i} differs from its single map")
+        check(b.final_objective == qap_objective(g, topo, b.perm),
+              f"{label}: result {i}: jf is not the host objective")
+        singles.append(one)
+    out = {"phase": label, "n": graphs[0].n, "graphs": len(graphs),
+           "edges": [g.num_edges for g in graphs],
+           "mean_degree": [2.0 * g.num_edges / g.n for g in graphs],
+           "bucket": plan.bucket.tag(),
+           "levels": len(plan.engines),
+           "jf": [r.final_objective for r in many],
+           "batch_seconds": wall, "batch_seconds_per_graph":
+           wall / len(graphs), "single_seconds": single_s,
+           "single_seconds_mean": sum(single_s) / len(single_s),
+           "batch_launches": {k: launches[k] for k in MAP_KERNELS},
+           "single_launches_sum": single_launches,
+           "engine_calls": len(calls),
+           "refine_seconds": [c["seconds"] for c in calls],
+           "reads": reads, "passes": passes,
+           "reads_per_pass": reads / max(passes, 1),
+           "reads_by_call": [c["syncs"]["reads"] for c in calls],
+           "syncs_observed_by_call": [c["syncs"]["observed"] for c in calls],
+           "swaps_by_call": [[st.swaps for st in c["stats"]] for c in calls],
+           "cpu_compared_n": [c["graphs"][0].n for c in compared],
+           "cpu_compared_swaps": cpu_swaps, "cpu_refine_seconds": cpu_s,
+           "equals_singles": True}
+    emit(out)
+    return out
+
+
+def phase_batch(topo):
+    """The multilevel batch at the main cell's n on the main machine,
+    then the flat batch at n = 1024 on the torus form."""
+    from repro_torch.core import MappingSpec
+    from repro_torch.topology import TorusTopology
+    side = SIZE["side"]
+    ml = run_batch(topo, ml_spec(), batch_graphs(
+        side, side, BATCH["radius"], BATCH["seed"]), "batch:multilevel",
+        cpu_max_n=BATCH_CPU_MAX_N)
+    flat = run_batch(TorusTopology((side, side, side // 4)),
+                     MappingSpec(engine="device", backend="pallas"),
+                     batch_graphs(side, side // 4, BATCH["flat_radius"],
+                                  BATCH["seed"] + 1), "batch:flat-torus")
+    return ml, flat
+
+
+def phase_warm(topo, g, perm, pairs):
+    """``execute_warm`` on the main map's result after a drift at a
+    seeded WARM["share"] of the vertices (WARM's note), with the pairs
+    touching those vertices active: equal to the CPU warm refinement from
+    the same incumbent, the incumbent unchanged, P unchanged, the
+    inactive region frozen."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Mapper, MappingSpec, from_edges
+    spec = MappingSpec(engine="device", backend="pallas",
+                       max_sweeps=WARM["max_sweeps"])
+    rng = np.random.default_rng(WARM["seed"])
+    hot_ids = rng.choice(g.n, int(WARM["share"] * g.n), replace=False)
+    hot = np.zeros(g.n, bool)
+    hot[hot_ids] = True
+    partner = (hot_ids + rng.integers(1, g.n, len(hot_ids))) % g.n
+    u, v, w = g.edge_list()
+    live = from_edges(g.n, np.concatenate([u, hot_ids]),
+                      np.concatenate([v, partner]),
+                      np.concatenate([w, np.full(len(hot_ids),
+                                                 WARM["factor"])]))
+    active = hot[pairs[:, 0]] | hot[pairs[:, 1]]
+    incumbent = perm.copy()
+    mapper = Mapper(topo, spec, device=DEVICE)
+    plan = mapper.lower_for(live)
+    calls, undo = instrument(plan.engines)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = plan.execute_warm(live, incumbent, pairs=pairs, active=active)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    undo()
+    check_launched(launches, MAP_KERNELS, "warm")
+    check(np.array_equal(incumbent, perm), "warm: the incumbent changed")
+    check(len(calls) == 1 and len(calls[0]["pairs"][0]) == len(pairs),
+          "warm: the refined pair set is not the fixed one (P changed)")
+    check_counted(calls[0]["syncs"], "warm")
+    movable = np.zeros(g.n, bool)
+    movable[pairs[active].ravel()] = True
+    check(np.array_equal(res.perm[~movable], perm[~movable]),
+          "warm: a vertex outside every active pair moved")
+    check(res.final_objective <= res.initial_objective,
+          "warm: jf above j0")
+    cpu = Mapper(topo, spec, device="cpu").lower_for(live)
+    t1 = time.perf_counter()
+    ref = cpu.execute_warm(live, perm, pairs=pairs, active=active)
+    cpu_s = time.perf_counter() - t1
+    check(np.array_equal(ref.perm, res.perm) and
+          ref.final_objective == res.final_objective and
+          ref.initial_objective == res.initial_objective and
+          ref.search_stats.objective_trace ==
+          res.search_stats.objective_trace,
+          "warm: card and CPU warm refinements differ")
+    out = {"phase": "warm", "n": g.n, "pairs": len(pairs),
+           "active_pairs": int(active.sum()), "hot_vertices": int(hot.sum()),
+           "movable_vertices": int(movable.sum()),
+           "moved_vertices": int(np.sum(res.perm != perm)),
+           "j0": res.initial_objective, "jf": res.final_objective,
+           "sweeps": calls[0]["syncs"]["sweeps"],
+           "reads": calls[0]["syncs"]["reads"],
+           "syncs_observed": calls[0]["syncs"]["observed"],
+           "refine_seconds": calls[0]["seconds"], "warm_seconds": wall,
+           "cpu_warm_seconds": cpu_s, "launches": launches,
+           "equals_cpu": True, "incumbent_unchanged": True,
+           "inactive_frozen": True}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------ phase 9
 def _host_s(fn):
     """(result, seconds) of ``fn()`` ending in a device synchronize."""
     import torch
@@ -841,7 +1348,7 @@ def phase_gain(topo, g, perm, pairs, forms):
           "kernel": rec})
     return rec, launches
 
-# ------------------------------------------------------------ phase 7
+# ------------------------------------------------------------ phase 10
 # K4 at the serve phase's prefill shape (granite-3-8b, B 4 x T 2048), bf16
 # and float32 (the float32 check's shape), and at starcoder2-7b's
 # sliding-window attention (T 8192, window 4096), bf16; small cases at
@@ -995,7 +1502,7 @@ def phase_flash():
     return records, worst
 
 
-# ------------------------------------------------------------ phase 8
+# ------------------------------------------------------------ phase 11
 # the serving path at granite-3-8b's full published config
 SERVE = {"arch": "granite-3-8b", "batch": 4, "prompt_len": 2048, "gen": 32,
          "seed": 0}
@@ -1252,6 +1759,9 @@ def main(argv) -> int:
     run_map(MatrixTopology(matrix=FatTreeTopology(
         SIZE["forms_fattree"], (1.0, 1.0, 1.0)).distance_matrix()), quarter,
         "forms:fattree-matrix-int8", compare_cpu=True)
+    phase_multilevel(main_topo, main_g, main_run["jf"])
+    batch_ml, _ = phase_batch(main_topo)
+    phase_warm(main_topo, main_g, main_perm, main_pairs)
     k3, gain_launches = phase_gain(main_topo, main_g, main_perm, main_pairs,
                                    forms)
     k4, k4_worst = phase_flash()
@@ -1283,6 +1793,12 @@ def main(argv) -> int:
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"]})
+        if "batch_ms" in rec:
+            # the lane axis: launches in the multilevel batch's map_many
+            # and the device time of one launch of LANES lanes
+            kernels[-1].update(
+                batch_launches=batch_ml["batch_launches"][name],
+                batch_ms=rec["batch_ms"])
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

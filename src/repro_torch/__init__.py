@@ -1,10 +1,13 @@
 """PyTorch/CUDA port of the VieM reproduction (the JAX package ``repro``
 stays beside it as the reference).
 
-The port runs the flat device mapping path —
-``Mapper(machine, MappingSpec(engine="device", backend="pallas")).map(g)``
-— on an NVIDIA H100 through two hand-written CUDA kernels (the QAP
-objective and the sparse pair gains), the dense gain matrix
+The port runs the device mapping paths —
+``Mapper(machine, MappingSpec(engine="device", backend="pallas")).map(g)``,
+flat or multilevel (``multilevel=MultilevelSpec()``), batched
+(``Mapper.map_many``) and warm-started (``MappingPlan.execute_warm``) —
+on an NVIDIA H100 through two hand-written CUDA kernels (the QAP
+objective and the sparse pair gains, each with a lane axis that covers
+a batch in one launch), the dense gain matrix
 (``Mapper.gain_matrix``) through a third, and the host search drivers
 (``engine="host"``, the default) and the ``viem``/``evaluator`` CLIs on
 top.  The LM substrate's serving path

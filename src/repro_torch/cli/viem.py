@@ -12,6 +12,7 @@ Usage:
         [--local_search_neighborhood=communication]
         [--communication_neighborhood_dist=10]
         [--engine=host|device]            # host numpy drivers / sweep engine
+        [--multilevel] [--multilevel_levels=N] [--multilevel_coarsen_min=N]
         [--parallel_sweeps]               # host engine: batched sweeps
         [--backend=numpy|pallas]          # pallas: the CUDA objective
         [--kernel_block_rows=N] [--kernel_lanes=N]
@@ -24,10 +25,11 @@ Usage:
 
 The flags are the JAX package's ``repro.cli.viem`` flags, and the
 defaults are its defaults (``engine="host"`` with the communication
-neighborhood).  Those of paths the port has not taken over yet —
-``--multilevel*``, ``--portfolio*``, ``--profile``, ``--metrics-out``
-and the ``remap-watch``/``lint`` subcommands — exit with an error that
-names the ROADMAP item.
+neighborhood; ``--multilevel`` selects the V-cycle over the device
+engine, its knobs following ``--preconfiguration_mapping``).  Those of
+paths the port has not taken over yet — ``--portfolio*``,
+``--profile``, ``--metrics-out`` and the ``remap-watch``/``lint``
+subcommands — exit with an error that names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -46,10 +48,10 @@ from .machine import add_topology_flags, machine_flags_given, \
 # flags accepted for compatibility with repro.cli.viem that select paths
 # the port does not have yet: flag -> (what, ROADMAP queue-1 item)
 _UNPORTED_FLAGS = {
-    "profile": ("--profile (Chrome trace export)", 4),
-    "metrics_out": ("--metrics-out (metrics registry)", 4),
+    "profile": ("--profile (Chrome trace export)", 10),
+    "metrics_out": ("--metrics-out (metrics registry)", 10),
 }
-_UNPORTED_COMMANDS = {"remap-watch": 1, "lint": 8}
+_UNPORTED_COMMANDS = {"remap-watch": 10, "lint": 8}
 
 
 def _print_algorithms():
@@ -112,12 +114,20 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--explain", action="store_true",
                     help="lower the plan for this graph WITHOUT executing "
                          "and pretty-print plan.describe()")
-    for flag in ("--multilevel", "--portfolio"):
-        ap.add_argument(flag, action=argparse.BooleanOptionalAction,
-                        default=None, help="not ported yet (exits)")
-    for flag, typ in (("--multilevel_levels", int),
-                      ("--multilevel_coarsen_min", int),
-                      ("--portfolio_lanes", int),
+    ap.add_argument("--multilevel",
+                    action=argparse.BooleanOptionalAction, default=None,
+                    help="coarsen → map → uncoarsen V-cycle over the "
+                         "device engine (repro_torch.multilevel); knob "
+                         "defaults follow --preconfiguration_mapping")
+    ap.add_argument("--multilevel_levels", type=int, default=None,
+                    help="max V-cycle levels incl. the finest (1 = flat, "
+                         "bit-identical to the plain device engine)")
+    ap.add_argument("--multilevel_coarsen_min", type=int, default=None,
+                    help="stop contracting below this many coarse "
+                         "vertices")
+    ap.add_argument("--portfolio", action=argparse.BooleanOptionalAction,
+                    default=None, help="not ported yet (exits)")
+    for flag, typ in (("--portfolio_lanes", int),
                       ("--portfolio_rounds", int),
                       ("--portfolio_tabu_tenure", int),
                       ("--portfolio_kick", float),

@@ -1,5 +1,6 @@
 """VieM core of the PyTorch/CUDA port: the staged mapping API over the
-flat pipeline (device or host search) and the dense gain matrix.
+flat and multilevel pipelines (device or host search), batches, warm
+starts and the dense gain matrix.
 
     from repro_torch.core import Hierarchy, Mapper, MappingSpec, grid3d
 

@@ -6,6 +6,7 @@ staged through `MappingPlan` artifacts, on one device.
     plan = mapper.lower(ShapeBucket.of(g))   # stage 1: lower
     result = plan.execute(g)                 # stage 2: run
     result = mapper.map(g)                   # thin wrapper: lower-or-fetch
+    results = mapper.map_many(gs)            # one plan, one batched loop
 
 A `Mapper` owns one machine model — a :class:`Hierarchy` (wrapped into
 the ``tree`` topology) or any registered
@@ -17,8 +18,8 @@ shared by its plans.  ``device`` is ``"cuda"`` unless the caller passes
 round-trip with the JAX package unchanged.
 
 This is the port of the JAX package's ``core/mapping.py`` for ``map``,
-``objective`` and ``gain_matrix``; ``map_many`` and the serving queue
-are not ported yet (ROADMAP.md queue 1).
+``map_many``, ``objective`` and ``gain_matrix``; the serving queue is
+not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -35,11 +36,12 @@ __all__ = ["Mapper", "MappingResult", "MappingPlan", "ShapeBucket"]
 
 # default caps for the session caches (override via Mapper(cache_caps=...)):
 # "plans" bounds the Mapper's plan LRU; "engines" bounds the shared
-# engine pool; "pairs" bounds each plan's candidate-pair cache;
-# "engine_graphs"/"engine_pairs" bound each pooled engine's device-upload
-# LRUs (see RefinementEngine)
+# engine pool; "pairs"/"pyramids" bound each plan's per-request
+# graph-content caches; "engine_graphs"/"engine_pairs" bound each pooled
+# engine's device-upload LRUs (see RefinementEngine)
 _DEFAULT_CACHE_CAPS = {"plans": 8, "engines": 8, "pairs": 16,
-                       "engine_graphs": 16, "engine_pairs": 16}
+                       "pyramids": 8, "engine_graphs": 16,
+                       "engine_pairs": 16}
 
 
 class Mapper:
@@ -61,7 +63,8 @@ class Mapper:
                 raise ValueError(f"unknown cache_caps keys {unknown}; "
                                  f"known: {sorted(caps)}")
             caps.update(cache_caps)
-        self._plan_caps = {"pairs": caps["pairs"]}
+        self._plan_caps = {"pairs": caps["pairs"],
+                           "pyramids": caps["pyramids"]}
         self._engine_caps = {"graphs": caps["engine_graphs"],
                              "pairs": caps["engine_pairs"]}
         # THE session cache: lowered plans keyed by (seed-free spec,
@@ -73,6 +76,9 @@ class Mapper:
         # argument), so plans over the same (machine kernel form, sweep
         # budget, kernel config) share one instance
         self._engine_pool = _LRU(caps["engines"])
+        # machine-side coarse pyramid (graph-independent, fixed by the
+        # topology): grown lazily, shared by every multilevel plan
+        self._ml_machines: list = [self.topology]
         self._requests = 0
 
     def _shared_engine(self, machine, max_sweeps: int, kernel_config=None):
@@ -89,6 +95,16 @@ class Mapper:
                                      kernel_config=kernel_config,
                                      device=self.device))
         return eng, self._engine_pool.builds > before
+
+    def _coarse_machines(self, depth: int) -> list:
+        """The machine-side pyramid up to ``depth`` levels — level l
+        pairs the PEs (2b, 2b+1) of level l-1.  Coarsening materializes
+        O(n²) coarse distance matrices, so the chain is built once per
+        session and shared by every plan over this machine."""
+        from ..multilevel.coarsen import coarsen_machine
+        while len(self._ml_machines) < depth:
+            self._ml_machines.append(coarsen_machine(self._ml_machines[-1]))
+        return self._ml_machines[:depth]
 
     @classmethod
     def from_spec(cls, spec: MappingSpec, device=None) -> "Mapper":
@@ -130,6 +146,7 @@ class Mapper:
             lambda: MappingPlan(self.topology, spec, bucket,
                                 cache_caps=self._plan_caps,
                                 engine_factory=self._shared_engine,
+                                machine_factory=self._coarse_machines,
                                 device=self.device))
 
     def lower_for(self, g: CommGraph, spec: MappingSpec | None = None,
@@ -180,6 +197,9 @@ class Mapper:
             "pair_cache_builds": agg["pair_builds"],
             "pair_cache_hits": agg["pair_hits"],
             "pair_cache_evictions": agg["pair_evictions"],
+            "pyramid_builds": agg["pyramid_builds"],
+            "pyramid_hits": agg["pyramid_hits"],
+            "pyramid_evictions": agg["pyramid_evictions"],
             "requests": self._requests,
         }
 
@@ -222,6 +242,33 @@ class Mapper:
         self._requests += 1
         plan = self.lower(self.bucket_of(g), spec)
         return plan.execute(g, seed=spec.seed, telemetry=telemetry)
+
+    def map_many(self, graphs, spec: MappingSpec | None = None,
+                 telemetry: bool = False) -> list[MappingResult]:
+        """Map a batch of graphs through one plan.
+
+        Graphs must agree on process count (and therefore PE count); the
+        batch is lowered into the union bucket, so device-engine batches
+        run as ONE batched sweep loop per level (one K2 launch a sweep
+        for all of them on the card).  Each result equals the graph's
+        :meth:`map` (the padding into the union bucket is inert).
+        """
+        graphs = list(graphs)
+        if not graphs:
+            return []
+        ns = {g.n for g in graphs}
+        if len(ns) != 1:
+            raise ValueError(f"map_many requires same-shape graphs; got "
+                             f"process counts {sorted(ns)}")
+        spec = self.spec if spec is None else spec.validate()
+        for g in graphs:
+            self._check_size(g)
+        self._requests += len(graphs)
+        bucket = self.bucket_of(graphs[0])
+        for g in graphs[1:]:
+            bucket = bucket.union(self.bucket_of(g))
+        return self.lower(bucket, spec).execute_batch(
+            graphs, seed=spec.seed, telemetry=telemetry)
 
     def _check_size(self, g: CommGraph) -> None:
         if g.n != self.h.n_pe:

@@ -7,21 +7,27 @@ explicit:
 
     plan = mapper.lower(ShapeBucket.of(g))      # resolve + bind kernels
     result = plan.execute(g)                    # hot path: pad + run
+    results = plan.execute_batch(graphs)        # one batched sweep loop
+    result = plan.execute_warm(g, perm, active=mask)   # warm-start remap
 
 ``lower`` resolves everything that does not depend on the individual
 graph — the construction/neighborhood registry handles, the partition
-config, the :class:`~repro_torch.engine.RefinementEngine`, the kernel
-configuration, and the objective kernel for the ``pallas`` backend (in
-this port: the hand-written CUDA objective, K1) — so ``execute`` pads
-the graph into the plan's :class:`~repro_torch.core.spec.ShapeBucket`
-(inert by the DeviceGraph padding invariants) and runs the pipeline.
-The seed is a runtime input (``execute(g, seed=)``).
+config, the multilevel machine pyramid and its coarse machines, one
+:class:`~repro_torch.engine.RefinementEngine` per level, the kernel
+configuration of each level, and the objective kernel for the
+``pallas`` backend (in this port: the hand-written CUDA objective, K1)
+— so ``execute`` pads the graph into the plan's
+:class:`~repro_torch.core.spec.ShapeBucket` (inert by the DeviceGraph
+padding invariants) and runs the pipeline.  The seed is a runtime input
+(``execute(g, seed=)``).
 
-This is the port of the JAX package's ``core/plan.py`` for the flat
-pipeline, on both engines (``device``: the refinement engine; ``host``:
-the numpy search drivers of :mod:`.local_search`), and for the dense
-gain matrix (``gain_matrix``: K3 on the ``pallas`` backend).  Lowering a
-spec with a multilevel (more than one level) or portfolio block raises
+This is the port of the JAX package's ``core/plan.py``: the flat
+pipeline on both engines (``device``: the refinement engine; ``host``:
+the numpy search drivers of :mod:`.local_search`), the multilevel
+V-cycle (:mod:`repro_torch.multilevel`), batches (``execute_batch``:
+every level's refinement is one batched engine call), warm starts
+(``execute_warm``) and the dense gain matrix (``gain_matrix``: K3 on the
+``pallas`` backend).  Lowering a spec with a portfolio block raises
 ``NotImplementedError`` naming its ROADMAP item.
 
 A plan is portable: ``to_json()``/``save()`` serialize its
@@ -96,11 +102,17 @@ class _LRU:
         self._on_evict = on_evict
         self._data: OrderedDict = OrderedDict()
 
+    def __len__(self) -> int:
+        return len(self._data)
+
     def values(self):
         return self._data.values()
 
     def items(self):
         return self._data.items()
+
+    def clear(self):
+        self._data.clear()
 
     def get_or_build(self, key, build):
         val = self._data.get(key)
@@ -216,7 +228,7 @@ def empty_host_cache() -> None:
     (fn or torch._C._host_emptyCache)()
 
 
-_PLAN_CACHE_CAPS = {"pairs": 16}
+_PLAN_CACHE_CAPS = {"pairs": 16, "pyramids": 8}
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -234,10 +246,10 @@ class MappingPlan:
     def __init__(self, machine, spec: MappingSpec | None = None,
                  bucket: ShapeBucket | None = None,
                  cache_caps: dict | None = None, engine_factory=None,
-                 device=None):
+                 machine_factory=None, device=None):
         with _TR.span("plan.lower") as sp:
             self._lower(machine, spec, bucket, cache_caps, engine_factory,
-                        device)
+                        machine_factory, device)
             sp.attrs["machine"] = self.topology.kind
             sp.attrs["engine"] = self.spec.engine
             sp.attrs["bucket"] = (None if self.bucket is None
@@ -245,7 +257,7 @@ class MappingPlan:
         self.lower_seconds = sp.dur
 
     def _lower(self, machine, spec, bucket, cache_caps, engine_factory,
-               device):
+               machine_factory, device):
         from ..kernels.config import derive_kernel_config
         from ..topology.base import as_topology
         self.device = resolve_device(device)
@@ -254,8 +266,6 @@ class MappingPlan:
         self.bucket = None if bucket is None else bucket.validate()
         if self.spec.portfolio is not None:
             raise _not_ported("portfolio search", 3)
-        if self.spec.resolved_multilevel() is not None:
-            raise _not_ported("multilevel mapping", 2)
         caps = dict(_PLAN_CACHE_CAPS)
         caps.update(cache_caps or {})
         # --- stage 1 (lower): resolve every handle the hot path needs
@@ -265,24 +275,43 @@ class MappingPlan:
         self._nb = (None if self.spec.neighborhood is None else
                     resolve_neighborhood(self.spec.neighborhood))
         self.max_sweeps = sweep_budget(self.spec)
-        self.machines = [self.topology]
-        # kernel geometry: derived from the plan bucket + device type
-        # (overridable via spec.kernel) at lower time, reported by
-        # describe() under "kernels"
+        self._ml = self.spec.resolved_multilevel()
+        # machine-side level pyramid: level l pairs the PEs (2b, 2b+1)
+        # of level l-1 (graph-independent, fixed by n and the V-cycle
+        # knobs).  ``machine_factory(depth)`` lets a Mapper session share
+        # the chain across plans (coarsening materializes O(n²) coarse
+        # distance matrices); a standalone plan builds its own
+        machines = [self.topology]
+        if self._ml is not None:
+            from ..multilevel.coarsen import coarsen_machine, pyramid_depth
+            depth = pyramid_depth(self.topology.n_pe, *self._ml)
+            if machine_factory is not None:
+                machines = list(machine_factory(depth))
+            else:
+                for _ in range(depth - 1):
+                    machines.append(coarsen_machine(machines[-1]))
+        self.machines = machines
+        # kernel geometry: ONE KernelConfig per pyramid level, derived
+        # from the plan bucket + device type (overridable via spec.kernel)
+        # at lower time, reported by describe() under "kernels".  A coarse
+        # matrix machine whose averaged distances are no longer exact
+        # integers derives dist_dtype=None (a float32 table): the packing
+        # is decided per level
         self.kernel_backend = self.device.type
         kspec = self.spec.kernel
         kover = {} if kspec is None else {
             "block_rows": kspec.block_rows, "lanes": kspec.lanes,
             "acc_dtype": kspec.acc_dtype, "quantize": kspec.quantize}
-        kind = self.topology.kernel_params()[0]
-        self.kernel_configs = [derive_kernel_config(
-            kind, bucket=self.bucket, backend=self.kernel_backend,
-            table=self.topology.matrix() if kind == "matrix" else None,
-            **kover)]
-        # the refinement engine (device engine only).  ``engine_factory
-        # (machine, max_sweeps, kernel_config) -> (engine, built)`` lets a
-        # Mapper session pool engines across plans; a standalone plan
-        # builds its own
+        self.kernel_configs = []
+        for m in machines:
+            kind = m.kernel_params()[0]
+            self.kernel_configs.append(derive_kernel_config(
+                kind, bucket=self.bucket, backend=self.kernel_backend,
+                table=m.matrix() if kind == "matrix" else None, **kover))
+        # one refinement engine per level (device engine only).
+        # ``engine_factory(machine, max_sweeps, kernel_config) -> (engine,
+        # built)`` lets a Mapper session pool engines across plans; a
+        # standalone plan builds its own
         self.engine_builds = 0
         self.engines = None
         if self.spec.engine == "device":
@@ -294,10 +323,11 @@ class MappingPlan:
                     return RefinementEngine(m, max_sweeps=sweeps,
                                             kernel_config=config,
                                             device=dev), True
-            eng, built = engine_factory(self.topology, self.max_sweeps,
-                                        self.kernel_configs[0])
-            self.engine_builds += bool(built)
-            self.engines = [eng]
+            self.engines = []
+            for m, cfg in zip(machines, self.kernel_configs):
+                eng, built = engine_factory(m, self.max_sweeps, cfg)
+                self.engine_builds += bool(built)
+                self.engines.append(eng)
         self.kernel_compiles = 0
         self._objective_fn = None
         if self.spec.backend == "pallas":
@@ -308,24 +338,26 @@ class MappingPlan:
         self._swap_gain_fn = None
         # --- per-request state (graph-content keyed, LRU-bounded)
         self._pairs_lru = _LRU(caps["pairs"])
+        self._pyramids = _LRU(caps["pyramids"])
         self.executes = 0
         self.execute_seconds_total = 0.0
 
     # -------------------------------------------------------------- describe
     def describe(self) -> dict:
-        """Structured report of what was lowered — size, machine kind,
-        device kernel form, kernel configuration, sweep budget."""
+        """Structured report of what was lowered — per level: size,
+        machine kind, device kernel form, kernel configuration, sweep
+        budget."""
         n = self.topology.n_pe
         levels = [{
-            "level": 0,
-            "n": n,
-            "machine_kind": self.topology.kind,
-            "kernel_form": self.topology.kernel_params()[0],
-            "kernel_config": self.kernel_configs[0].tag(),
+            "level": i,
+            "n": n >> i,
+            "machine_kind": m.kind,
+            "kernel_form": m.kernel_params()[0],
+            "kernel_config": self.kernel_configs[i].tag(),
             "engine_compiled": self.engines is not None,
             "max_sweeps": (self.max_sweeps if self.engines is not None
                            else self.spec.max_sweeps),
-        }]
+        } for i, m in enumerate(self.machines)]
         return {
             "machine": {"kind": self.topology.kind, "n_pe": n},
             "bucket": None if self.bucket is None else self.bucket.to_dict(),
@@ -336,7 +368,9 @@ class MappingPlan:
             "engine": self.spec.engine,
             "backend": self.spec.backend,
             "device": str(self.device),
-            "multilevel": None,
+            "multilevel": (None if self._ml is None else
+                           {"levels": self._ml[0],
+                            "coarsen_min": self._ml[1]}),
             "portfolio": None,
             "kernels": {
                 "backend": self.kernel_backend,
@@ -363,8 +397,21 @@ class MappingPlan:
             "pair_builds": self._pairs_lru.builds,
             "pair_hits": self._pairs_lru.hits,
             "pair_evictions": self._pairs_lru.evictions,
+            "pyramid_builds": self._pyramids.builds,
+            "pyramid_hits": self._pyramids.hits,
+            "pyramid_evictions": self._pyramids.evictions,
             "executes": self.executes,
         }
+
+    def clear_request_caches(self) -> None:
+        """Drop all per-request state (candidate pairs, pyramids, device
+        uploads) while keeping the lowered artifacts — benchmarks use
+        this to time the full per-graph cost honestly."""
+        self._pairs_lru.clear()
+        self._pyramids.clear()
+        for eng in (self.engines or []):
+            eng._dg_cache.clear()
+            eng._pair_cache.clear()
 
     # --------------------------------------------------------- serialization
     def plan_spec(self) -> PlanSpec:
@@ -495,7 +542,11 @@ class MappingPlan:
         self.executes += 1
         with _TR.span("plan.execute", n=g.n, engine=self.spec.engine,
                       seed=seed) as sp:
-            res = self._execute_flat(g, seed, telemetry)
+            if self._ml is not None:
+                res = self._execute_batch_multilevel([g], seed,
+                                                     telemetry)[0]
+            else:
+                res = self._execute_flat(g, seed, telemetry)
             sp.attrs["final_objective"] = res.final_objective
         self.execute_seconds_total += sp.dur
         return res
@@ -527,6 +578,189 @@ class MappingPlan:
                                            shuffle=self._nb.shuffle,
                                            seed=seed, **kw)
         return self._finish(g, perm, j0, t_cons, rsp.dur, stats)
+
+    def candidate_pairs(self, g: CommGraph,
+                        seed: int | None = None) -> np.ndarray:
+        """The plan's candidate exchange pairs for this graph — the same
+        (p, 2) array ``execute`` refines over, LRU-cached per structure.
+        Exposed so incremental callers (a remap monitor) can build a
+        runtime activity mask over a *fixed* pair set and keep the padded
+        pair shape unchanged across warm re-executions."""
+        if self._nb is None:
+            return np.zeros((0, 2), np.int64)
+        seed = self.spec.seed if seed is None else int(seed)
+        return self._pairs(g, seed)
+
+    def execute_warm(self, g: CommGraph, perm: np.ndarray,
+                     pairs: np.ndarray | None = None,
+                     active: np.ndarray | None = None,
+                     seed: int | None = None,
+                     telemetry: bool = False) -> MappingResult:
+        """Warm-start: refine an incumbent ``perm`` on ``g`` with NO
+        construction phase — the incremental-remap hot path.
+
+        ``pairs`` fixes the candidate set (default: the plan's own
+        ``candidate_pairs(g)``); ``active`` is an optional boolean mask
+        over it.  Inactive pairs are replaced by inert ``(u, u)``
+        self-pairs — exactly the engine's padding convention, zero gain
+        and never selected — so the array length and the padded pair
+        shape P are unchanged.  Dirty-region remaps pass the mask of
+        pairs touching drifted vertices and leave the rest of the mapping
+        frozen in place by construction of the sweep.
+
+        The incumbent is *not* mutated; the result carries the refined
+        copy.  ``initial_objective`` is the incumbent's objective on
+        ``g``, so ``result.improvement`` reads as recovered drift."""
+        seed = self.spec.seed if seed is None else int(seed)
+        self._check(g)
+        self.executes += 1
+        perm = np.array(perm, dtype=np.int64, copy=True)
+        with _TR.span("plan.execute_warm", n=g.n, engine=self.spec.engine,
+                      seed=seed) as sp:
+            j0 = self.objective(g, perm)
+            stats = None
+            with _TR.span("plan.refine", n=g.n, engine=self.spec.engine,
+                          warm=True) as rsp:
+                if pairs is None:
+                    pairs = self.candidate_pairs(g, seed)
+                pairs = np.asarray(pairs, dtype=np.int64)
+                if active is not None:
+                    active = np.asarray(active, dtype=bool)
+                    if active.shape != (len(pairs),):
+                        raise ValueError(
+                            f"active mask shape {active.shape} does not "
+                            f"match {len(pairs)} candidate pairs")
+                    masked = np.where(active[:, None], pairs,
+                                      pairs[:, [0, 0]])
+                else:
+                    masked = pairs
+                rsp.attrs["pairs"] = len(pairs)
+                rsp.attrs["active"] = (len(pairs) if active is None
+                                       else int(active.sum()))
+                if len(pairs) and self.spec.engine == "device":
+                    eng = self.engines[0]
+                    stats = eng.refine(g, perm, masked, j0=j0,
+                                       bucket=self.bucket,
+                                       telemetry=telemetry)
+                    rsp.attrs["syncs"] = dict(eng.last_syncs)
+                    if stats.telemetry is not None:
+                        rsp.attrs["telemetry"] = stats.telemetry
+                elif len(pairs):
+                    live = masked if active is None else pairs[active]
+                    kw = {} if self.spec.max_sweeps is None else \
+                        {"max_sweeps": self.spec.max_sweeps}
+                    stats = parallel_sweep_search(g, self.topology, perm,
+                                                  live, seed=seed, **kw)
+            res = self._finish(g, perm, j0, 0.0, rsp.dur, stats)
+            sp.attrs["final_objective"] = res.final_objective
+        self.execute_seconds_total += sp.dur
+        return res
+
+    def execute_batch(self, graphs, seed: int | None = None,
+                      telemetry: bool = False) -> list[MappingResult]:
+        """Map a batch through one batched sweep loop per level (one K2
+        launch a sweep for the whole batch on the card).
+
+        Every graph must fit the plan bucket (they need not be
+        structurally identical — padding into the common bucket is
+        inert), so each result equals the graph's single ``execute``."""
+        graphs = list(graphs)
+        if not graphs:
+            return []
+        seed = self.spec.seed if seed is None else int(seed)
+        if self._ml is not None:
+            for g in graphs:
+                self._check(g)
+            self.executes += len(graphs)
+            with _TR.span("plan.execute_batch", batch=len(graphs),
+                          n=graphs[0].n) as bsp:
+                out = self._execute_batch_multilevel(graphs, seed, telemetry)
+            self.execute_seconds_total += bsp.dur
+            return out
+        if self.spec.engine != "device" or self._nb is None:
+            return [self.execute(g, seed=seed, telemetry=telemetry)
+                    for g in graphs]
+        for g in graphs:
+            self._check(g)
+        self.executes += len(graphs)
+        with _TR.span("plan.execute_batch", batch=len(graphs),
+                      n=graphs[0].n) as bsp:
+            # duplicate lanes (a caller padding its batch by repeating
+            # graphs) share one construction; every lane still gets its
+            # own perm array because the engine refines in place
+            memo: dict = {}
+            prepped = []
+            for g in graphs:
+                hit = memo.get(id(g))
+                if hit is None:
+                    hit = memo[id(g)] = self._construct_one(g, seed)
+                else:
+                    hit = (hit[0].copy(), hit[1], hit[2])
+                prepped.append(hit)
+            perms = [perm for perm, _, _ in prepped]
+            # timed window matches execute()'s: pair gen + refinement
+            eng = self.engines[0]
+            with _TR.span("plan.refine", batch=len(graphs)) as rsp:
+                pairs_list = [self._pairs(g, seed) for g in graphs]
+                stats_list = eng.refine_batch(
+                    graphs, perms, pairs_list,
+                    j0s=[j0 for _, _, j0 in prepped],
+                    bucket=self.bucket, telemetry=telemetry)
+                rsp.attrs["syncs"] = dict(eng.last_syncs)
+            t_search = rsp.dur / len(graphs)
+        self.execute_seconds_total += bsp.dur
+        return [self._finish(g, perm, j0, t_cons, t_search, stats)
+                for g, (perm, t_cons, j0), stats
+                in zip(graphs, prepped, stats_list)]
+
+    # ------------------------------------------------------------ multilevel
+    def _pyramid(self, g: CommGraph, seed: int) -> list:
+        """The graph-side level pyramid, LRU-cached per (graph structure
+        *and weights* — the heavy-edge matching reads them, seed for
+        seeded neighborhoods); its contractions run on the plan's
+        device."""
+        from ..multilevel.coarsen import build_pyramid
+        levels, cmin = self._ml
+        if self._nb is None:
+            pair_fn = lambda gg: np.zeros((0, 2), np.int64)  # noqa: E731
+            skey = None
+        else:
+            nb = self._nb
+            pair_fn = lambda gg: nb.generate(        # noqa: E731
+                gg, dist=self.spec.neighborhood_dist, seed=seed,
+                max_pairs=self.spec.max_pairs)
+            skey = seed if nb.seeded else None
+        key = (("pyramid", skey)
+               + _structure_key(g, with_weights=True))
+        return self._pyramids.get_or_build(
+            key, lambda: build_pyramid(g, self.machines, levels, cmin,
+                                       pair_fn, device=self.device))
+
+    def _execute_batch_multilevel(self, graphs, seed: int,
+                                  telemetry: bool = False
+                                  ) -> list[MappingResult]:
+        """The coarsen → map → uncoarsen V-cycles (:mod:`repro_torch
+        .multilevel`) of a batch — one graph for ``execute`` — over the
+        plan's per-level engines.  The forced perfect pairing gives every
+        same-n graph the same level geometry, so each level's refinement
+        runs as ONE batched engine call across the whole batch.  The
+        reported initial objective is the projected (pre-refinement)
+        finest-level objective."""
+        from ..multilevel import vcycle_map_batch
+        n = graphs[0].n
+        with _TR.span("plan.pyramid", n=n, batch=len(graphs)):
+            pyramids = [self._pyramid(g, seed) for g in graphs]
+        with _TR.span("plan.vcycle", n=n, batch=len(graphs),
+                      levels=len(pyramids[0])) as sp:
+            results = vcycle_map_batch(
+                pyramids, self.engines, self._construct, self._cfg,
+                seed=seed, objective0=self.objective, bucket=self.bucket,
+                telemetry=telemetry)
+        elapsed = sp.dur / len(graphs)
+        return [self._finish(g, r.perm, r.initial_objective,
+                             r.construction_seconds,
+                             elapsed - r.construction_seconds, r.stats)
+                for g, r in zip(graphs, results)]
 
 
 def _plan_from_dict(d: dict, device=None) -> MappingPlan:

@@ -206,10 +206,8 @@ _ML_PRECONF = {
 
 @dataclass(frozen=True)
 class MultilevelSpec:
-    """V-cycle knobs for the multilevel mapping subsystem.  The port
-    parses and serializes them; lowering a spec whose block resolves to
-    more than one level raises ``NotImplementedError`` until the V-cycle
-    is ported (ROADMAP queue 1, item 2).
+    """V-cycle knobs for the multilevel mapping subsystem
+    (:mod:`repro_torch.multilevel`).
 
     ``levels`` is the maximum number of graph scales including the finest
     (1 = no coarsening: the parity escape hatch — bit-for-bit the flat
@@ -401,8 +399,8 @@ class MappingSpec:
     ``max_sweeps=None`` keeps each search driver's own default budget
     (for the device engine the budget then follows ``preconfiguration``:
     fast 32, eco 64, strong 128 sweeps).  ``multilevel`` enables the
-    coarsen → map → uncoarsen V-cycle over the device engine (not
-    ported yet); ``None`` (the default) keeps the flat
+    coarsen → map → uncoarsen V-cycle over the device engine
+    (:mod:`repro_torch.multilevel`); ``None`` (the default) keeps the flat
     single-level pipeline, and ``MultilevelSpec(levels=1)`` is
     bit-for-bit identical to it.  ``portfolio`` enables the vmapped
     multistart search with tabu memory (not ported yet); ``None``
@@ -612,8 +610,8 @@ class PlanSpec:
     the full :class:`MappingSpec` (machine model included as its
     :class:`TopologySpec`) plus the :class:`ShapeBucket` the plan was
     lowered for.  ``MappingPlan.from_dict`` / ``.load`` rebuild the live
-    plan — topology, kernels, refinement engine — from this spec
-    alone, which is what makes plans
+    plan — topology, level pyramid machines, kernels, refinement
+    engines — from this spec alone, which is what makes plans
     pickle/JSON-portable across processes.
     """
 

@@ -190,6 +190,18 @@ __device__ __forceinline__ float distance(const FormParams& f, float top,
   }
 }
 
+// A lane's base pointer, ``p + offset``, made opaque to the compiler, so
+// a gather at p[k] stays one multiply-add on that base.  Left visible,
+// the compiler reassociates each gather into (offset + k)·size + p, four
+// instructions where one does: K2's tree form, the gathers' heaviest
+// user, lost that much time to it (PERF.md §6).
+template <typename T>
+__device__ __forceinline__ const T* lane_base(const T* p, size_t offset) {
+  p += offset;
+  asm("" : "+l"(p));
+  return p;
+}
+
 // dists[nlev-1], the tree's distance between PEs with no common
 // ancestor below the root (0 for the other forms, which do not use it).
 __device__ __forceinline__ float top_distance(const FormParams& f) {

@@ -43,6 +43,15 @@
 // ms, which divides by nothing: its two table gathers a slot, into a
 // 16 MiB table that lives in L2, hold it.
 //
+// Lanes: one launch covers B independent instances (a batch of graphs
+// under one machine), gridDim.y = B.  Lane b reads nbr/wgt at b·n·K,
+// π at b·n and us/vs at b·P and writes out at b·P; the machine's D is
+// shared.  A single call is B = 1, in the instance whose lane offset is
+// a compile-time 0 (the offsets cost the tree form 3 % a launch).  This is the port's counterpart of
+// jax.vmap over the Pallas call (engine/sweep.py), which adds a grid
+// axis on the TPU; each lane's bits equal a launch of that lane alone,
+// since a pair's arithmetic never looks outside its own lane.
+//
 // Order: each side is reduced over its K slots in order, then the two
 // sides are added — the reference's order.  The `k != other` exclusion
 // is folded into the weight.  Padding pairs (u, u) give exactly 0:
@@ -79,14 +88,26 @@ __device__ __forceinline__ float side_gain(
   return s;
 }
 
-template <int FORM, int L>
+// LANES is false for a launch of one lane (B = 1, every single call):
+// its lane offsets are then a compile-time 0 and the pointers are used
+// as given, which keeps the lane axis out of the single call's time.
+template <int FORM, int L, bool LANES>
 __global__ void __launch_bounds__(kBlock)
 pair_gains(const int* __restrict__ nbr, const float* __restrict__ wgt, int K,
-           const int* __restrict__ perm, const int* __restrict__ us,
+           int n, const int* __restrict__ perm, const int* __restrict__ us,
            const int* __restrict__ vs, int P, const void* __restrict__ D,
            const __grid_constant__ FormParams f, float* __restrict__ out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= P) return;
+  if constexpr (LANES) {
+    const size_t lane = blockIdx.y;
+    nbr = lane_base(nbr, lane * n * K);
+    wgt = lane_base(wgt, lane * n * K);
+    perm = lane_base(perm, lane * n);
+    us += lane * P;
+    vs += lane * P;
+    out += lane * P;
+  }
   const int u = us[i];
   const int v = vs[i];
   const int pu = __ldg(perm + u);
@@ -110,17 +131,28 @@ pair_gains(const int* __restrict__ nbr, const float* __restrict__ wgt, int K,
 // forms have no keys.
 constexpr int kFewLevels = 4;
 
-template <int FORM>
-void launch(const int* nbr, const float* wgt, int K, const int* perm,
-            const int* us, const int* vs, int P, const void* D,
+template <int FORM, bool LANES>
+void launch(const int* nbr, const float* wgt, int K, int n, const int* perm,
+            const int* us, const int* vs, int P, int B, const void* D,
             const FormParams& f, float* out, cudaStream_t stream) {
-  const int grid = (P + kBlock - 1) / kBlock;
+  const dim3 grid((P + kBlock - 1) / kBlock, B);
   if (FORM >= kMatF32 || f.nlev <= kFewLevels)
-    pair_gains<FORM, kFewLevels><<<grid, kBlock, 0, stream>>>(
-        nbr, wgt, K, perm, us, vs, P, D, f, out);
+    pair_gains<FORM, kFewLevels, LANES><<<grid, kBlock, 0, stream>>>(
+        nbr, wgt, K, n, perm, us, vs, P, D, f, out);
   else if constexpr (FORM < kMatF32)
-    pair_gains<FORM, kMaxLevels><<<grid, kBlock, 0, stream>>>(
-        nbr, wgt, K, perm, us, vs, P, D, f, out);
+    pair_gains<FORM, kMaxLevels, LANES><<<grid, kBlock, 0, stream>>>(
+        nbr, wgt, K, n, perm, us, vs, P, D, f, out);
+}
+
+template <int FORM>
+void launch(const int* nbr, const float* wgt, int K, int n, const int* perm,
+            const int* us, const int* vs, int P, int B, const void* D,
+            const FormParams& f, float* out, cudaStream_t stream) {
+  if (B > 1)
+    launch<FORM, true>(nbr, wgt, K, n, perm, us, vs, P, B, D, f, out, stream);
+  else
+    launch<FORM, false>(nbr, wgt, K, n, perm, us, vs, P, B, D, f, out,
+                        stream);
 }
 
 }  // namespace
@@ -128,14 +160,15 @@ void launch(const int* nbr, const float* wgt, int K, const int* perm,
 
 extern "C" {
 
-// out[i] = gain of swapping us[i] and vs[i] under perm.  K % 4 == 0 and
-// nbr, wgt 16-byte aligned; ``f`` points at the host's FormParams of
+// out[b·P + i] = gain of swapping us[b·P + i] and vs[b·P + i] under lane
+// b's π, for B lanes of n vertices, P pairs and K slots each.  K % 4 == 0
+// and nbr, wgt 16-byte aligned; ``f`` points at the host's FormParams of
 // ``f_bytes`` bytes.  Returns a cudaError_t code.
-int viem_pair_gains(const int* nbr, const float* wgt, int K, const int* perm,
-                    const int* us, const int* vs, int P, const void* D,
-                    int form, const viem::FormParams* f, int f_bytes,
-                    float* out, void* stream) {
-  if (P < 0 || K < 0 || K % 4 != 0 ||
+int viem_pair_gains(const int* nbr, const float* wgt, int K, int n,
+                    const int* perm, const int* us, const int* vs, int P,
+                    int B, const void* D, int form, const viem::FormParams* f,
+                    int f_bytes, float* out, void* stream) {
+  if (P < 0 || K < 0 || K % 4 != 0 || n < 0 || B < 1 || B > 65535 ||
       reinterpret_cast<uintptr_t>(nbr) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wgt) % 16 != 0 ||
       f_bytes != static_cast<int>(sizeof(viem::FormParams)) ||
@@ -143,25 +176,18 @@ int viem_pair_gains(const int* nbr, const float* wgt, int K, const int* perm,
     return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VIEM_LAUNCH(FORM) \
+  viem::launch<FORM>(nbr, wgt, K, n, perm, us, vs, P, B, D, *f, out, s)
   switch (form) {
-    case viem::kTree:
-      viem::launch<viem::kTree>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
-      break;
-    case viem::kTorus:
-      viem::launch<viem::kTorus>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
-      break;
-    case viem::kMatF32:
-      viem::launch<viem::kMatF32>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
-      break;
-    case viem::kMatI8:
-      viem::launch<viem::kMatI8>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
-      break;
-    case viem::kMatI16:
-      viem::launch<viem::kMatI16>(nbr, wgt, K, perm, us, vs, P, D, *f, out, s);
-      break;
+    case viem::kTree: VIEM_LAUNCH(viem::kTree); break;
+    case viem::kTorus: VIEM_LAUNCH(viem::kTorus); break;
+    case viem::kMatF32: VIEM_LAUNCH(viem::kMatF32); break;
+    case viem::kMatI8: VIEM_LAUNCH(viem::kMatI8); break;
+    case viem::kMatI16: VIEM_LAUNCH(viem::kMatI16); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef VIEM_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,16 @@
 // the counter to 0 for the next launch.  The grid size depends only on
 // E, so the result is deterministic run to run, and equal to that of a
 // second launch summing the partials the same way; no float atomics.
-// Padding edges (0, 0, w = 0) add exactly 0.
+// Padding edges (0, 0, w = 0) add exactly 0, and the result is the
+// same bits under more padding while E stays at or below 256 · kMaxBlocks
+// (every thread then holds at most one edge; the extra blocks' partials
+// are 0 and land after the live ones in each thread's sum).
+//
+// Lanes: one launch takes B sums, gridDim.y = B.  Lane b reads eu, ev, ew
+// at b·E and π at b·n, writes out[b], and has its own kMaxBlocks partials
+// and its own ticket, so lane b's last block sums lane b's partials only.
+// The grid still depends only on E, so each lane's bits equal a single
+// launch on that lane's arrays; a single call is B = 1.
 //
 // Where it stands (H100, main shape): one launch of ~4.7 µs on the
 // device against ~37 µs of host time in its wrapper (PERF.md); a call
@@ -48,16 +57,24 @@ __device__ __forceinline__ float block_sum(float v, float* sm) {
   return sm[0];
 }
 
-// ``scratch`` holds kMaxBlocks partials, then the ticket counter (0
-// between launches).
+// ``scratch`` holds, for each lane, kMaxBlocks partials, then the
+// lane's ticket counter (0 between launches).
 template <int FORM>
 __global__ void __launch_bounds__(kBlock)
 objective(const int* __restrict__ eu, const int* __restrict__ ev,
           const float* __restrict__ ew, int E, const int* __restrict__ perm,
-          const void* __restrict__ D, const __grid_constant__ FormParams f,
-          float* __restrict__ scratch, float* __restrict__ out) {
+          int n, const void* __restrict__ D,
+          const __grid_constant__ FormParams f, float* __restrict__ scratch,
+          float* __restrict__ out) {
   __shared__ float sm[kBlock];
   __shared__ bool last;
+  const size_t lane = blockIdx.y;
+  eu += lane * E;
+  ev += lane * E;
+  ew += lane * E;
+  perm = lane_base(perm, lane * n);
+  scratch += lane * (kMaxBlocks + 1);
+  out += lane;
   const float top = top_distance(f);
   float acc = 0.0f;
   for (int i = blockIdx.x * kBlock + threadIdx.x; i < E;
@@ -90,10 +107,10 @@ objective(const int* __restrict__ eu, const int* __restrict__ ev,
 
 template <int FORM>
 void launch(const int* eu, const int* ev, const float* ew, int E,
-            const int* perm, const void* D, const FormParams& f,
+            const int* perm, int n, int B, const void* D, const FormParams& f,
             float* scratch, int nb, float* out, cudaStream_t stream) {
-  objective<FORM><<<nb, kBlock, 0, stream>>>(eu, ev, ew, E, perm, D, f,
-                                             scratch, out);
+  objective<FORM><<<dim3(nb, B), kBlock, 0, stream>>>(eu, ev, ew, E, perm, n,
+                                                      D, f, scratch, out);
 }
 
 }  // namespace
@@ -101,40 +118,35 @@ void launch(const int* eu, const int* ev, const float* ew, int E,
 
 extern "C" {
 
-// out[0] = Σ_e ew[e] · D(perm[eu[e]], perm[ev[e]]) in one launch of
-// ``nb`` blocks (1 <= nb <= kMaxBlocks).  ``scratch`` holds kMaxBlocks
-// floats and a counter that is 0 (zero-filled before the first launch;
-// each launch leaves it 0) and is used by one stream at a time.  ``f``
-// points at the host's FormParams of ``f_bytes`` bytes.  Returns a
-// cudaError_t code.
+// out[b] = Σ_e ew[b·E + e] · D(π_b(eu[b·E + e]), π_b(ev[b·E + e])), π_b
+// the n entries of perm at b·n, for B lanes in one launch of ``nb``
+// blocks a lane (1 <= nb <= kMaxBlocks).  ``scratch`` holds B ·
+// (kMaxBlocks + 1) floats, each lane's counter 0 (zero-filled before the
+// first launch; each launch leaves them 0), and is used by one stream at
+// a time.  ``f`` points at the host's FormParams of ``f_bytes`` bytes.
+// Returns a cudaError_t code.
 int viem_qap_objective(const int* eu, const int* ev, const float* ew, int E,
-                       const int* perm, const void* D, int form,
+                       const int* perm, int n, int B, const void* D, int form,
                        const viem::FormParams* f, int f_bytes,
                        float* scratch, int nb, float* out, void* stream) {
-  if (E < 0 || nb < 1 || nb > viem::kMaxBlocks ||
+  if (E < 0 || n < 0 || B < 1 || B > 65535 || nb < 1 ||
+      nb > viem::kMaxBlocks ||
       f_bytes != static_cast<int>(sizeof(viem::FormParams)) ||
       f->nlev < 0 || f->nlev > viem::kMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VIEM_LAUNCH(FORM) \
+  viem::launch<FORM>(eu, ev, ew, E, perm, n, B, D, *f, scratch, nb, out, s)
   switch (form) {
-    case viem::kTree:
-      viem::launch<viem::kTree>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
-      break;
-    case viem::kTorus:
-      viem::launch<viem::kTorus>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
-      break;
-    case viem::kMatF32:
-      viem::launch<viem::kMatF32>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
-      break;
-    case viem::kMatI8:
-      viem::launch<viem::kMatI8>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
-      break;
-    case viem::kMatI16:
-      viem::launch<viem::kMatI16>(eu, ev, ew, E, perm, D, *f, scratch, nb, out, s);
-      break;
+    case viem::kTree: VIEM_LAUNCH(viem::kTree); break;
+    case viem::kTorus: VIEM_LAUNCH(viem::kTorus); break;
+    case viem::kMatF32: VIEM_LAUNCH(viem::kMatF32); break;
+    case viem::kMatI8: VIEM_LAUNCH(viem::kMatI8); break;
+    case viem::kMatI16: VIEM_LAUNCH(viem::kMatI16); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef VIEM_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,11 @@ The guide's central speedup is the cheap incremental gain during
 pair-exchange local search (§2.1).  This package runs the whole sweep
 loop on the device: graph, permutation, candidate pairs, gains,
 conflict resolution and the objective live in device tensors, and only
-one scalar per sweep and one flag per matching round come back to the
-host.  One sweep is:
+one value per sweep (each lane's best gain) and one flag per matching
+round come back to the host.  The loop runs over a lane axis: a batch
+of graphs (``RefinementEngine.refine_batch``, a single ``refine`` being
+a batch of one) shares every sweep's kernel launches and readbacks.
+One sweep is:
 
   1. **Gains** — the sparse O(deg) gain of every candidate pair at once
      (:func:`repro_torch.kernels.pair_gain.pair_gains`: the K2 CUDA

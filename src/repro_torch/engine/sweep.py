@@ -1,10 +1,11 @@
 """The eager sweep loop and its session wrapper (see package docstring).
 
 ``_make_refine`` builds the sweep function — a loop from initial
-permutation to converged permutation — for one distance form;
-:class:`RefinementEngine` wraps it with host glue: DeviceGraph/pair
-uploads (cached per graph structure), eps selection, and
-:class:`SearchStats` reporting against host float64 objectives.
+permutations to converged permutations over a lane axis of graphs — for
+one distance form; :class:`RefinementEngine` wraps it with host glue:
+DeviceGraph/pair uploads (cached per graph structure) padded to the
+batch's common shapes, eps selection, and :class:`SearchStats` reporting
+against host float64 objectives.
 """
 
 from __future__ import annotations
@@ -27,33 +28,48 @@ _EPS_REL = 1e-6
 
 
 def _make_refine(kind: str, params: tuple, max_sweeps: int, config=None):
-    """The sweep fn for one distance form.
+    """The sweep fn for one distance form, over a lane axis of B
+    instances (B = 1 for a single refinement).
 
     Signature: ``(nbr, wgt, eu, ev, ew, us, vs, perm0, D, eps, tenure,
-    dlb, collect, boundary) -> (perm, trace, sweeps, swaps, tel)``.  The
-    tensors live on one device; ``tenure``/``dlb``/``collect`` are host
-    values; ``boundary`` is the :class:`~repro_torch.runtime.Boundary`
-    every deliberate readback goes through.  The trace is the carried
-    float32 objective after each sweep (NaN past convergence).
+    dlb, collect, boundary) -> (perm, trace, sweeps, swaps, tel)``.
+    ``nbr``/``wgt`` are (B, n, K), ``eu``/``ev``/``ew`` (B, E),
+    ``us``/``vs`` (B, P) and ``perm0`` (B, n) tensors on one device;
+    ``D`` is shared; ``eps`` is a sequence of B host floats;
+    ``tenure``/``dlb``/``collect`` are host values; ``boundary`` is the
+    :class:`~repro_torch.runtime.Boundary` every deliberate readback
+    goes through.  Outputs: the (B, n) best permutations, the (B,
+    max_sweeps + 1) float32 objective traces (NaN past convergence),
+    host (B,) sweep counts, device (B,) swap counts and the telemetry.
 
     It is the JAX package's ``lax.while_loop`` run eagerly, step for
-    step: every sweep computes the gains of all candidate pairs (K2 on
-    CUDA), masks tabu / don't-look pairs, builds a greedy maximal
-    matching of positive pairs by rounds of locally dominant pairs,
-    applies it when the recomputed objective (K1 on CUDA) beats the best
-    single swap, else falls back to that swap, and keeps the best
-    permutation seen.  See the JAX package's ``engine/sweep.py`` for the
-    tabu, aspiration, don't-look and telemetry semantics, which are the
-    same here.
+    step, and its batch form is that loop under ``jax.vmap``: every
+    sweep computes the gains of all candidate pairs of all lanes (one K2
+    launch), masks tabu / don't-look pairs, builds each lane's greedy
+    maximal matching of positive pairs by rounds of locally dominant
+    pairs, applies it when the recomputed objective (one K1 launch for
+    the batch) beats the lane's best single swap, else falls back to
+    that swap, and keeps the best permutation seen.  A lane whose loop
+    has ended (no move, or the sweep budget spent) is frozen — its perm,
+    objective, trace, swaps, tabu memory and don't-look bits no longer
+    change — while the others run on, as under ``vmap``.  Matching
+    rounds are counted per lane: a lane with no eligible pair left
+    selects nothing in the batch's further rounds.  See the JAX
+    package's ``engine/sweep.py`` for the tabu, aspiration, don't-look
+    and telemetry semantics, which are the same here.
+
+    Layout: the matching's scatter buffers treat the batch as a disjoint
+    union — lane b's vertex u is ``b·n + u`` in buffers of length
+    ``B·n + 1`` — and the reference's out-of-range scatter index
+    (``mode="drop"`` at ``n``) lands in the scratch slot ``B·n``.
 
     Host syncs: the reference never leaves its device loop; this loop
-    reads back one scalar per sweep (the best masked gain, which decides
-    whether the sweep moves and whether the matching runs) and one flag
-    per matching round (whether an eligible pair is left).  A sweep with
-    ``r`` matching rounds therefore costs ``1 + r`` syncs; the counts
-    are in ``boundary.reads``.  Everything else stays on the device.
-    Out-of-range scatters (the reference's ``mode="drop"`` index ``n``)
-    land in a scratch slot ``n`` of (n+1)-long buffers.
+    reads back one (B,) vector per sweep (each lane's best masked gain,
+    which decides whether the lane moves and whether the matching runs)
+    and one flag per matching round (whether any lane has an eligible
+    pair left), whatever B is.  A sweep with ``r`` matching rounds
+    therefore costs ``1 + r`` syncs; the counts are in
+    ``boundary.reads``.  Everything else stays on the device.
     """
     import torch
 
@@ -64,161 +80,220 @@ def _make_refine(kind: str, params: tuple, max_sweeps: int, config=None):
     def refine_fn(nbr, wgt, eu, ev, ew, us, vs, perm0, D, eps, tenure,
                   dlb, collect, boundary):
         dev = perm0.device
-        n = perm0.shape[0]
-        p = us.shape[0]
+        b_, n = perm0.shape
+        p = us.shape[1]
+        lanes = torch.arange(b_, device=dev)
+        base = (lanes * n)[:, None]
         us_l, vs_l = us.long(), vs.long()
+        us_f, vs_f = us_l + base, vs_l + base       # disjoint-union ids
         idx = torch.arange(p, device=dev)
-        oob = torch.full((p,), n, dtype=torch.long, device=dev)
+        oob = torch.full((b_, p), b_ * n, dtype=torch.long, device=dev)
         tabu_on = int(tenure) > 0
-        eps_h = float(eps)                   # eps is float32-exact already
-        # fills, not host tensors: a pageable H2D copy would sync
-        eps_t = torch.full((), eps_h, dtype=torch.float32, device=dev)
+        eps_h = np.asarray(eps, dtype=np.float32)   # float32-exact already
+        # fills, not a host tensor (nor an element assignment from the
+        # host): a pageable H2D copy would sync
+        eps_t = torch.cat([torch.full((1,), e, dtype=torch.float32,
+                                      device=dev) for e in eps_h.tolist()])
+        eps_c = eps_t[:, None]
         true_t = torch.ones((), dtype=torch.bool, device=dev)
+        rows = lanes * (max_sweeps + 1)
 
         def objective(perm):
             return pg.edge_objective(kind, params, eu, ev, ew, perm, D,
                                      config=config)
 
         def scatter_true(buf, where_, index):
-            buf.index_put_((torch.where(where_, index, oob),), true_t)
+            buf.index_put_((torch.where(where_, index, oob).reshape(-1),),
+                           true_t)
+
+        def decide(gbest, done, sweeps, eps):
+            """A sweep's per-lane control from its best masked gains:
+            the same expressions on the host copy (numpy, which steers
+            the loop) and on the device (torch, which masks), so the
+            two stay in step.  Returns (active, any_pos, fall_down,
+            moved)."""
+            act = ~done & (sweeps < max_sweeps)
+            any_pos = act & (gbest > eps)
+            fall_down = act & ~any_pos & (gbest > neg_inf) if tabu_on \
+                else any_pos & False
+            return act, any_pos, fall_down, any_pos | fall_down
+
+        def advance(done, sweeps, act, moved):
+            """A lane that was active and did not move has ended; one
+            that moved took a sweep."""
+            return done | (act & ~moved), sweeps + moved
+
+        def at_sweep(buf, col, val, act):
+            """buf[b, col[b]] = val[b] for the active lanes."""
+            flat = buf.view(-1)
+            where_ = rows + col
+            flat[where_] = torch.where(act, val, flat[where_])
 
         j0 = objective(perm0)
-        trace = torch.full((max_sweeps + 1,), float("nan"),
+        trace = torch.full((b_, max_sweeps + 1), float("nan"),
                            dtype=torch.float32, device=dev)
-        trace[0] = j0
+        trace[:, 0] = j0
         perm, j = perm0, j0
         best_perm, best_j = perm0, j0
-        swaps = torch.zeros((), dtype=torch.int32, device=dev)
-        tabu_until = torch.zeros(p, dtype=torch.int32, device=dev)
-        cold = torch.zeros(n, dtype=torch.bool, device=dev)
-        tel = {key: torch.zeros(max_sweeps + 1, dtype=torch.int32,
+        swaps = torch.zeros(b_, dtype=torch.int32, device=dev)
+        tabu_until = torch.zeros((b_, p), dtype=torch.int32, device=dev)
+        cold = torch.zeros((b_, n), dtype=torch.bool, device=dev)
+        tel = {key: torch.zeros((b_, max_sweeps + 1), dtype=torch.int32,
                                 device=dev)
-               for key in ("exchanges", "tabu_masked", "aspirations")}
-        match_rounds = np.zeros(max_sweeps + 1, np.int32)
-        downhill = passes = 0
-        sweeps = 0
-        while sweeps < max_sweeps:
+               for key in ("exchanges", "tabu_masked", "aspirations",
+                           "match_rounds")}
+        downhill = np.zeros(b_, np.int64)
+        passes = np.zeros(b_, np.int64)
+        # the loop state twice: on the host (for control) and on the
+        # device (for masking, so no host value is ever copied up); both
+        # move only through decide() and advance()
+        sweeps = np.zeros(b_, np.int64)
+        done = np.zeros(b_, bool)
+        sweeps_d = torch.zeros(b_, dtype=torch.int32, device=dev)
+        done_d = torch.zeros(b_, dtype=torch.bool, device=dev)
+        while not np.all(done | (sweeps >= max_sweeps)):
             g = pg.pair_gains(kind, params, nbr, wgt, perm, us, vs, D,
                               config=config)
             # ---- tabu / don't-look masking (identity when both are off)
             blocked = None
             if tabu_on:
-                aspire = (j - g) < best_j - eps_t
-                tabu_active = tabu_until > sweeps
+                aspire = (j[:, None] - g) < (best_j - eps_t)[:, None]
+                tabu_active = tabu_until > sweeps_d[:, None]
                 blocked = (tabu_active & ~aspire) | (us == vs)
             if dlb:
-                cold_pair = cold[us_l] & cold[vs_l]
+                cold_f = cold.reshape(-1)
+                cold_pair = cold_f[us_f] & cold_f[vs_f]
                 blocked = cold_pair if blocked is None else blocked | cold_pair
             g_m = g if blocked is None else torch.where(blocked, neg_inf, g)
-            best = torch.argmax(g_m).reshape(1)     # first max, like jnp
-            gbest = g_m.index_select(0, best).reshape(())
+            best = torch.argmax(g_m, dim=1)         # first max, like jnp
+            gbest = g_m.gather(1, best[:, None]).squeeze(1)
             gbest_h = boundary.read(gbest)          # sync 1 of the sweep
-            any_pos = gbest_h > eps_h
-            fall_down = tabu_on and not any_pos and gbest_h > neg_inf
-            moved = any_pos or fall_down
+            act_h, any_pos_h, fall_down_h, moved_h = decide(
+                gbest_h, done, sweeps, eps_h)
+            act, any_pos, fall_down, moved = decide(gbest, done_d, sweeps_d,
+                                                    eps_t)
 
             # ---- greedy maximal matching by gain priority (rounds of
-            # locally-dominant positive pairs; with no positive pair the
-            # reference's first round condition is already false)
-            pos = g_m > eps_t
-            sel = torch.zeros(p, dtype=torch.bool, device=dev)
-            used = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-            rounds = 0
-            elig = pos if any_pos else None
+            # locally-dominant positive pairs; a lane with no positive
+            # pair takes no round, as the reference's first round
+            # condition is already false there)
+            pos = (g_m > eps_c) & any_pos[:, None]
+            sel = torch.zeros((b_, p), dtype=torch.bool, device=dev)
+            used = torch.zeros(b_ * n + 1, dtype=torch.bool, device=dev)
+            rounds = torch.zeros(b_, dtype=torch.int32, device=dev)
+            live = any_pos
+            elig = pos if any_pos_h.any() else None
             while elig is not None:
+                if collect:
+                    rounds += live.to(torch.int32)
                 ge = torch.where(elig, g_m, neg_inf)
-                vmax = torch.full((n,), neg_inf, dtype=torch.float32,
+                vmax = torch.full((b_ * n,), neg_inf, dtype=torch.float32,
                                   device=dev)
-                vmax.scatter_reduce_(0, us_l, ge, "amax")
-                vmax.scatter_reduce_(0, vs_l, ge, "amax")
-                cand = elig & (ge >= vmax[us_l]) & (ge >= vmax[vs_l])
+                vmax.scatter_reduce_(0, us_f.reshape(-1), ge.reshape(-1),
+                                     "amax")
+                vmax.scatter_reduce_(0, vs_f.reshape(-1), ge.reshape(-1),
+                                     "amax")
+                cand = elig & (ge >= vmax[us_f]) & (ge >= vmax[vs_f])
                 masked_idx = torch.where(cand, idx, p)
-                vmin = torch.full((n,), p, dtype=torch.long, device=dev)
-                vmin.scatter_reduce_(0, us_l, masked_idx, "amin")
-                vmin.scatter_reduce_(0, vs_l, masked_idx, "amin")
-                new = cand & (vmin[us_l] == idx) & (vmin[vs_l] == idx)
-                scatter_true(used, new, us_l)
-                scatter_true(used, new, vs_l)
+                vmin = torch.full((b_ * n,), p, dtype=torch.long,
+                                  device=dev)
+                vmin.scatter_reduce_(0, us_f.reshape(-1),
+                                     masked_idx.reshape(-1), "amin")
+                vmin.scatter_reduce_(0, vs_f.reshape(-1),
+                                     masked_idx.reshape(-1), "amin")
+                new = cand & (vmin[us_f] == idx) & (vmin[vs_f] == idx)
+                scatter_true(used, new, us_f)
+                scatter_true(used, new, vs_f)
                 sel |= new
-                rounds += 1
-                elig = pos & ~used[us_l] & ~used[vs_l]
-                if not boundary.read(torch.any(elig & ~sel)):
+                elig = pos & ~used[us_f] & ~used[vs_f]
+                live = torch.any(elig & ~sel, dim=1)
+                if not boundary.read(torch.any(live)):
                     elig = None
 
             # ---- apply the matching (each vertex in ≤ 1 selected pair;
             # without a positive pair it is empty and never taken)
-            if any_pos:
-                pu, pv = perm[us_l], perm[vs_l]
-                perm_m = torch.cat([perm, perm.new_zeros(1)])
-                perm_m[torch.where(sel, us_l, oob)] = pv
-                perm_m[torch.where(sel, vs_l, oob)] = pu
-                perm_m = perm_m[:n]
+            perm_f0 = perm.reshape(-1)
+            if any_pos_h.any():
+                pu, pv = perm_f0[us_f], perm_f0[vs_f]
+                perm_m = torch.cat([perm_f0, perm_f0.new_zeros(1)])
+                perm_m[torch.where(sel, us_f, oob)] = pv
+                perm_m[torch.where(sel, vs_f, oob)] = pu
+                perm_m = perm_m[:b_ * n].view(b_, n)
                 j_m = objective(perm_m)         # swaps of a matching
-                take = j_m < j - gbest          # interact: verify
+                take = any_pos & (j_m < j - gbest)      # interact: verify
             else:
                 perm_m, j_m = perm, j
-                take = torch.zeros((), dtype=torch.bool, device=dev)
+                take = torch.zeros_like(any_pos)
 
             # ---- fallback: the single best pair, exact incremental gain
-            ub, vb = us_l.index_select(0, best), vs_l.index_select(0, best)
-            perm_f = perm.clone()
-            perm_f.index_copy_(0, ub, perm.index_select(0, vb))
-            perm_f.index_copy_(0, vb, perm.index_select(0, ub))
-            fall = ~take if any_pos else torch.full(
-                (), fall_down, dtype=torch.bool, device=dev)
+            ub = us_f.gather(1, best[:, None]).squeeze(1)
+            vb = vs_f.gather(1, best[:, None]).squeeze(1)
+            perm_f = perm_f0.clone()
+            perm_f.index_copy_(0, ub, perm_f0.index_select(0, vb))
+            perm_f.index_copy_(0, vb, perm_f0.index_select(0, ub))
+            perm_f = perm_f.view(b_, n)
+            fall = (any_pos & ~take) | fall_down
 
-            perm_n = torch.where(take, perm_m, torch.where(fall, perm_f, perm))
+            perm_n = torch.where(take[:, None], perm_m,
+                                 torch.where(fall[:, None], perm_f, perm))
             j_n = torch.where(take, j_m, torch.where(fall, j - gbest, j))
-            exch = torch.where(take, sel.sum(dtype=torch.int32),
+            exch = torch.where(take, sel.sum(dim=1, dtype=torch.int32),
                                fall.to(torch.int32))
             swaps = swaps + exch
-            sweeps_n = sweeps + 1 if moved else sweeps
-            trace[sweeps_n] = j_n
+            sweeps_n = sweeps_d + moved.to(torch.int32)
+            at_sweep(trace, sweeps_n, j_n, act)
 
             # ---- tabu memory: applied pairs reject their reversal
-            applied = torch.where(take, sel, (idx == best) & fall)
+            applied = torch.where(take[:, None], sel,
+                                  (idx == best[:, None]) & fall[:, None])
             if tabu_on:
-                tabu_until = torch.where(applied, sweeps_n + int(tenure),
-                                         tabu_until)
+                tabu_until = torch.where(
+                    applied, sweeps_n[:, None] + int(tenure), tabu_until)
 
             # ---- don't-look bits (selection-level masking only; the
             # reference updates them even with dlb off, where they are
             # never read)
             if dlb:
-                pos_raw = (g > eps_t).to(torch.int32)
-                warm = torch.zeros(n, dtype=torch.int32, device=dev)
-                warm.scatter_reduce_(0, us_l, pos_raw, "amax")
-                warm.scatter_reduce_(0, vs_l, pos_raw, "amax")
-                moved_v = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-                scatter_true(moved_v, applied, us_l)
-                scatter_true(moved_v, applied, vs_l)
-                moved_v = moved_v[:n]
-                wake = moved_v | torch.any(moved_v[nbr.long()] & (wgt > 0),
-                                           dim=1)
-                cold = torch.where(wake, False, cold | ~(warm > 0))
+                pos_raw = (g > eps_c).to(torch.int32).reshape(-1)
+                warm = torch.zeros(b_ * n, dtype=torch.int32, device=dev)
+                warm.scatter_reduce_(0, us_f.reshape(-1), pos_raw, "amax")
+                warm.scatter_reduce_(0, vs_f.reshape(-1), pos_raw, "amax")
+                moved_v = torch.zeros(b_ * n + 1, dtype=torch.bool,
+                                      device=dev)
+                scatter_true(moved_v, applied, us_f)
+                scatter_true(moved_v, applied, vs_f)
+                moved_v = moved_v[:b_ * n]
+                nbr_f = nbr.long() + base[:, :, None]
+                wake = moved_v.view(b_, n) | torch.any(
+                    moved_v[nbr_f] & (wgt > 0), dim=2)
+                cold_n = torch.where(wake, False,
+                                     cold | ~(warm.view(b_, n) > 0))
+                cold = torch.where(act[:, None], cold_n, cold)
 
             # ---- telemetry (never read by the search)
             if collect:
-                tel["exchanges"][sweeps] = exch
+                at_sweep(tel["exchanges"], sweeps_d, exch, act)
                 if tabu_on:
-                    tel["tabu_masked"][sweeps] = torch.sum(
-                        tabu_active & ~aspire, dtype=torch.int32)
-                    tel["aspirations"][sweeps] = torch.sum(
-                        tabu_active & aspire, dtype=torch.int32)
-                match_rounds[sweeps] = rounds
-                downhill += int(fall_down)
-                passes += 1
+                    at_sweep(tel["tabu_masked"], sweeps_d, torch.sum(
+                        tabu_active & ~aspire, dim=1, dtype=torch.int32),
+                        act)
+                    at_sweep(tel["aspirations"], sweeps_d, torch.sum(
+                        tabu_active & aspire, dim=1, dtype=torch.int32),
+                        act)
+                at_sweep(tel["match_rounds"], sweeps_d, rounds, act)
+                downhill += fall_down_h
+                passes += act_h
 
             # ---- best-seen tracking (with tabu off, j is monotone)
             improved = j_n < best_j
-            best_perm = torch.where(improved, perm_n, best_perm)
+            best_perm = torch.where(improved[:, None], perm_n, best_perm)
             best_j = torch.where(improved, j_n, best_j)
-            perm, j, sweeps = perm_n, j_n, sweeps_n
-            if not moved:
-                break
+            perm, j = perm_n, j_n
+            done_d, sweeps_d = advance(done_d, sweeps_d, act, moved)
+            done, sweeps = advance(done, sweeps, act_h, moved_h)
         tel_out = dict(tel)
-        tel_out.update(match_rounds=match_rounds, downhill_escapes=downhill,
-                       passes=passes, sweeps=sweeps)
+        tel_out.update(downhill_escapes=downhill, passes=passes,
+                       sweeps=sweeps)
         return best_perm, trace, sweeps, swaps, tel_out
 
     return refine_fn
@@ -380,6 +455,17 @@ class RefinementEngine:
             stats.telemetry = EngineTelemetry.from_device(telemetry, trace)
         return stats
 
+    @staticmethod
+    def _unmoved(j0: float, telemetry: bool) -> SearchStats:
+        stats = SearchStats()
+        stats.initial_objective = stats.final_objective = j0
+        stats.objective_trace = [j0]
+        if telemetry:
+            from ..obs.telemetry import EngineTelemetry
+            stats.telemetry = EngineTelemetry(
+                objective_trace=np.asarray([j0]))
+        return stats
+
     # ------------------------------------------------------------------ API
     def refine(self, g: CommGraph, perm: np.ndarray, pairs: np.ndarray,
                j0: float | None = None, bucket=None,
@@ -395,44 +481,90 @@ class RefinementEngine:
         don't-look bits; ``telemetry`` attaches an
         :class:`~repro_torch.obs.telemetry.EngineTelemetry` to the
         stats.  The host syncs the loop made are left in
-        ``self.last_syncs``."""
+        ``self.last_syncs``.  It is :meth:`refine_batch` of one graph."""
+        return self.refine_batch([g], [perm], [pairs],
+                                 j0s=None if j0 is None else [j0],
+                                 bucket=bucket, tabu_tenure=tabu_tenure,
+                                 dlb=dlb, telemetry=telemetry)[0]
+
+    def refine_batch(self, graphs, perms, pairs_list, j0s=None,
+                     bucket=None, tabu_tenure: int = 0, dlb: bool = False,
+                     telemetry: bool = False) -> list[SearchStats]:
+        """Refine a batch of graphs over one machine in ONE sweep loop:
+        every sweep is one K2 launch and at most one K1 launch for the
+        whole batch, one counted readback of the (B,) best gains, and one
+        counted flag per matching round (``self.last_syncs`` then holds
+        the batch's counts, and ``sweeps``/``passes`` per lane).
+
+        Per-graph tensors are padded to the batch's common (K, E, P)
+        maxima — or, given a ``bucket``, to the plan's fixed shapes —
+        inert by the DeviceGraph/pair padding invariants, so each result
+        matches the corresponding single :meth:`refine`.  Each ``perm``
+        is refined in place.  ``j0s`` are the callers' already-computed
+        initial objectives (recomputed on host when omitted).  With no
+        candidate pair in any lane nothing can move: no loop runs, and
+        each lane reports its j0."""
         import torch
-        if j0 is None:
-            j0 = qap_objective(g, self.topology, perm)
-        if len(pairs) == 0:
-            stats = SearchStats()
-            stats.initial_objective = stats.final_objective = j0
-            stats.objective_trace = [j0]
-            if telemetry:
-                from ..obs.telemetry import EngineTelemetry
-                stats.telemetry = EngineTelemetry(
-                    objective_trace=np.asarray([j0]))
-            return stats
+        graphs = list(graphs)
+        if not graphs:
+            return []
+        if j0s is None:
+            j0s = [qap_objective(g, self.topology, p)
+                   for g, p in zip(graphs, perms)]
+        if not any(len(p) for p in pairs_list):
+            self.last_syncs = {"sweeps": 0, "passes": 0,
+                               "lane_sweeps": [0] * len(graphs), "reads": 0,
+                               "observed": None}
+            return [self._unmoved(j0, telemetry) for j0 in j0s]
+        p_raw = max(max((len(p) for p in pairs_list), default=1), 1)
         if bucket is not None:
-            dg = self._device_graph(g, k=bucket.max_deg,
-                                    e=bucket.num_edges)
-            us, vs = self._device_pairs(pairs,
-                                        pad_to=self._bucket_p(
-                                            bucket, len(pairs)))
+            k_max, e_max = bucket.max_deg, bucket.num_edges
+            p_max = self._bucket_p(bucket, p_raw)
+            dgs = [self._device_graph(g, k=k_max, e=e_max) for g in graphs]
         else:
-            dg = self._device_graph(g)
-            us, vs = self._device_pairs(pairs)
-        perm0 = torch.from_numpy(np.asarray(perm, dtype=np.int32)).to(
-            self.device)
+            dgs = [self._device_graph(g) for g in graphs]
+            k_max = max(dg.max_deg for dg in dgs)
+            e_max = max(dg.eu.shape[0] for dg in dgs)
+            p_max = -(-p_raw // 128) * 128      # same bucketing as refine()
+            dgs = [dg if (dg.max_deg, dg.eu.shape[0]) == (k_max, e_max)
+                   else dg.pad_to(k_max, e_max) for dg in dgs]
+        dev_pairs = [self._device_pairs(p, pad_to=p_max)
+                     for p in pairs_list]
+        perm0 = torch.from_numpy(np.stack(
+            [np.asarray(p, dtype=np.int32) for p in perms])).to(self.device)
+
+        def stack(tensors):
+            return tensors[0][None] if len(tensors) == 1 \
+                else torch.stack(tensors)
+
         with host_boundary("engine.sweeps", self.device) as hb:
             out_perm, trace, sweeps, swaps, tel = self._refine(
-                dg.nbr, dg.wgt, dg.eu, dg.ev, dg.ew, us, vs, perm0,
-                self._D, self._eps(j0), tabu_tenure, dlb, telemetry, hb)
+                stack([dg.nbr for dg in dgs]),
+                stack([dg.wgt for dg in dgs]),
+                stack([dg.eu for dg in dgs]),
+                stack([dg.ev for dg in dgs]),
+                stack([dg.ew for dg in dgs]),
+                stack([u for u, _ in dev_pairs]),
+                stack([v for _, v in dev_pairs]),
+                perm0, self._D, [self._eps(j) for j in j0s], tabu_tenure,
+                dlb, telemetry, hb)
         with host_boundary("engine.readback"):
-            perm[:] = out_perm.cpu().numpy().astype(perm.dtype)
+            perm_h = out_perm.cpu().numpy()
             trace_h = trace.cpu().numpy()
-            swaps_h = int(swaps.cpu())
+            swaps_h = swaps.cpu().numpy()
             tel_h = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
                          else v) for k, v in tel.items()}
-        passes = sweeps + (1 if sweeps < self.max_sweeps else 0)
-        self.last_syncs = {"sweeps": sweeps, "passes": passes,
+        passes = sweeps + (sweeps < self.max_sweeps)
+        self.last_syncs = {"sweeps": int(sweeps.max()),
+                           "passes": int(passes.max()),
+                           "lane_sweeps": sweeps.tolist(),
                            "reads": hb.reads, "observed": hb.syncs}
-        return self._stats(g, perm, j0, trace_h, sweeps, swaps_h,
-                           len(pairs), telemetry=tel_h if telemetry
-                           else None)
-
+        out = []
+        for i, (g, perm) in enumerate(zip(graphs, perms)):
+            perm[:] = perm_h[i].astype(perm.dtype)
+            out.append(self._stats(
+                g, perm, j0s[i], trace_h[i], int(sweeps[i]),
+                int(swaps_h[i]), len(pairs_list[i]),
+                telemetry={k: v[i] for k, v in tel_h.items()}
+                if telemetry else None))
+        return out

@@ -2,10 +2,11 @@
 
   qap_objective — K1: the edge-list QAP objective (``csrc/qap_objective
                   .cu``), replacing the JAX package's three Pallas
-                  reductions in ``kernels/qap_objective.py``
+                  reductions in ``kernels/qap_objective.py``; a lane axis
+                  takes a batch's B objectives in one launch
   pair_gain     — K2: sparse per-pair swap gains (``csrc/pair_gain.cu``),
-                  replacing ``pair_gains_pallas``; also the engine's
-                  ``edge_objective``
+                  replacing ``pair_gains_pallas``, with the same lane
+                  axis; also the engine's ``edge_objective``
   swap_gain     — K3: the dense O(n²) pair-exchange gain matrix
                   (``csrc/swap_gain.cu``), replacing ``swap_gain_matrix``.
                   As in the JAX package it is a reference path that plans
@@ -17,6 +18,9 @@
                   attention core.  Two routes by dtype: bfloat16 through
                   ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), float32
                   through ``csrc/flash_attention.cu``
+  contract      — graph contraction for the multilevel V-cycle (heavy-
+                  edge matching, sorted-run edge collapsing): the JAX
+                  package's plain ``jnp`` code, as torch ops (no kernel)
   ops           — device wrappers (``gain_matrix``, ``objective``) and
                   their ``*_ref`` twins
   ref           — plain PyTorch oracles of the kernels

@@ -28,6 +28,11 @@ padding pairs (u, u) give exactly 0.
   * :func:`edge_objective` — Σ w_e · D(π_u, π_v), the engine's
     in-loop objective: the K1 kernel on CUDA tensors, the plain
     (optionally chunked) sum on CPU tensors.
+
+Each takes a lane axis (a leading B on every per-graph tensor; D is
+shared): B instances in one launch on CUDA, lane by lane in the plain
+versions, each lane equal to the single call on its arrays.  It is the
+batched sweep's counterpart of ``jax.vmap`` over the Pallas call.
 """
 
 from __future__ import annotations
@@ -46,8 +51,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 PAIR_GAIN_KERNEL = CudaKernel(
     "pair_gains", "pair_gain", "viem_pair_gains",
-    [_P, _P, _I,                # nbr, wgt, K
-     _P, _P, _P, _I,            # perm, us, vs, P
+    [_P, _P, _I, _I,            # nbr, wgt, K, n
+     _P, _P, _P, _I, _I,        # perm, us, vs, P, lanes
      _P, _I,                    # D, form
      _P, _I,                    # FormParams, its size
      _P,                        # out
@@ -62,10 +67,15 @@ def edge_objective(kind: str, params: tuple, eu, ev, ew, perm, D,
     CUDA tensors go to the K1 kernel.  On the CPU, without a config (or
     when one edge tile covers the list) this is the flat sum; with a
     smaller tile it sums (block_rows · lanes)-element chunks in order,
-    accumulating in ``config.acc_dtype``, as the JAX package does."""
+    accumulating in ``config.acc_dtype``, as the JAX package does.  With
+    a lane axis ((B, E) edges, (B, n) perm) the (B,) objectives."""
     if eu.is_cuda:
         return qap_objective_edges(kind, params, eu, ev, ew, perm, D)
     import torch
+    if eu.dim() == 2:
+        return torch.stack([edge_objective(kind, params, eu[b], ev[b], ew[b],
+                                           perm[b], D, config=config)
+                            for b in range(eu.shape[0])])
     d = distance_form(kind, params)
     e = eu.shape[0]
     chunk = config.block_rows * config.lanes if config is not None else None
@@ -93,8 +103,14 @@ def pair_gains_plain(kind: str, params: tuple, nbr, wgt, perm, us, vs, D,
                      config: KernelConfig | None = None):
     """Exact swap gains for P candidate pairs in plain PyTorch (float32):
     per side, Σ over the K slots of w · (d(π_a, t) − d(π_b, t)), then
-    the two sides added."""
+    the two sides added.  With a lane axis (nbr/wgt (B, n, K), perm
+    (B, n), us/vs (B, P)) the (B, P) gains, lane by lane."""
     import torch
+    if us.dim() == 2:
+        return torch.stack([pair_gains_plain(kind, params, nbr[b], wgt[b],
+                                             perm[b], us[b], vs[b], D,
+                                             config=config)
+                            for b in range(us.shape[0])])
     d = distance_form(kind, params)
     perm_l = perm.long()
 
@@ -128,31 +144,36 @@ def pair_gains(kind: str, params: tuple, nbr, wgt, perm, us, vs, D,
     """Swap gains (P,) float32 of the candidate pairs (us[i], vs[i]):
     the K2 kernel for CUDA tensors, :func:`pair_gains_plain` for CPU
     tensors.  ``nbr``/``wgt`` (n, K) int32/float32, ``perm`` (n,) int32,
-    ``us``/``vs`` (P,) int32, ``D`` the matrix table or a dummy."""
+    ``us``/``vs`` (P,) int32, ``D`` the matrix table or a dummy.  With a
+    lane axis — nbr/wgt (B, n, K), perm (B, n), us/vs (B, P) — the
+    (B, P) gains of B instances under one D, in one launch."""
     if not us.is_cuda:
         return pair_gains_plain(kind, params, nbr, wgt, perm, us, vs, D,
                                 config=config)
     import torch
     check_cuda("pair_gains", us.device, nbr=nbr, wgt=wgt, perm=perm, us=us,
                vs=vs, D=D)
-    n, k = nbr.shape
-    p = int(us.shape[0])
-    if wgt.shape != nbr.shape or vs.shape[0] != p or perm.shape[0] != n:
+    lanes = us.shape[:-1]
+    n, k = nbr.shape[-2:]
+    p = int(us.shape[-1])
+    if us.dim() not in (1, 2) or wgt.shape != nbr.shape or \
+            nbr.shape[:-2] != lanes or vs.shape != us.shape or \
+            perm.shape != (*lanes, n):
         raise ValueError("pair_gains: inconsistent shapes nbr "
                          f"{tuple(nbr.shape)}, wgt {tuple(wgt.shape)}, "
-                         f"perm {tuple(perm.shape)}, us {p}, "
-                         f"vs {vs.shape[0]}")
+                         f"perm {tuple(perm.shape)}, us {tuple(us.shape)}, "
+                         f"vs {tuple(vs.shape)}")
     if k % 4 or nbr.data_ptr() % 16 or wgt.data_ptr() % 16:
         nbr, wgt = _rows_by_fours(nbr, wgt)
     form, f = form_params(kind, params, D)
-    out = torch.empty(p, dtype=torch.float32, device=us.device)
+    out = torch.empty(us.shape, dtype=torch.float32, device=us.device)
     with on_device(us.device):
         stream = torch.cuda.current_stream(us.device).cuda_stream
         PAIR_GAIN_KERNEL.launch(
-            nbr.data_ptr(), wgt.data_ptr(), int(nbr.shape[1]),
-            perm.data_ptr(), us.data_ptr(), vs.data_ptr(), p, D.data_ptr(),
-            form, ctypes.addressof(f), ctypes.sizeof(f), out.data_ptr(),
-            stream)
+            nbr.data_ptr(), wgt.data_ptr(), int(nbr.shape[-1]), int(n),
+            perm.data_ptr(), us.data_ptr(), vs.data_ptr(), p,
+            int(lanes[0]) if lanes else 1, D.data_ptr(), form,
+            ctypes.addressof(f), ctypes.sizeof(f), out.data_ptr(), stream)
     return out
 
 
@@ -160,10 +181,10 @@ def _rows_by_fours(nbr, wgt):
     """Fresh (hence 16-byte aligned) copies of the rows, K padded up to a
     multiple of 4 as ``DeviceGraph.pad_to`` pads: the row's own vertex
     id with weight 0, an inert slot.  The kernel reads rows four slots
-    at a time."""
+    at a time.  A leading lane axis is kept."""
     import torch
-    n, k = nbr.shape
+    n, k = nbr.shape[-2:]
     pad = -k % 4
-    ids = torch.arange(n, dtype=nbr.dtype, device=nbr.device)
-    return (torch.cat([nbr, ids[:, None].expand(n, pad)], dim=1),
-            torch.cat([wgt, wgt.new_zeros((n, pad))], dim=1))
+    ids = torch.arange(n, dtype=nbr.dtype, device=nbr.device)[:, None]
+    return (torch.cat([nbr, ids.expand(*nbr.shape[:-1], pad)], dim=-1),
+            torch.cat([wgt, wgt.new_zeros((*wgt.shape[:-1], pad))], dim=-1))

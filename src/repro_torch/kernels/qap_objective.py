@@ -16,7 +16,11 @@ JAX package's three Pallas reductions in ``kernels/qap_objective.py`` and
 fuses the Π gather their wrapper did), on CPU tensors it runs the plain
 PyTorch version :func:`qap_objective_plain`.  Both take the padded edge
 tensors (eu, ev, ew) and the permutation; padding edges (0, 0, w = 0)
-are inert.  The kernel takes a call in one launch, and its distance
+are inert.  Both also take a lane axis: (B, E) edge tensors and a
+(B, n) permutation give the B objectives (B,) of a batch, in one launch
+on CUDA, each lane's bits those of a single call on its arrays (the
+counterpart of ``jax.vmap`` over the Pallas call).  The kernel takes a
+call in one launch, and its distance
 form as one :class:`FormParams` struct, built once per form and cached
 (:func:`form_params`), with a fixed-point reciprocal (:func:`reciprocal`)
 for every divisor of the closed forms, so it divides by nothing.
@@ -62,7 +66,8 @@ class FormParams(ctypes.Structure):
 OBJECTIVE_KERNEL = CudaKernel(
     "qap_objective", "qap_objective", "viem_qap_objective",
     [_P, _P, _P, _I,            # eu, ev, ew, E
-     _P, _P, _I,                # perm, D, form
+     _P, _I, _I,                # perm, n, lanes
+     _P, _I,                    # D, form
      _P, _I,                    # FormParams, its size
      _P, _I, _P,                # scratch, nb, out
      _P])                       # stream
@@ -127,8 +132,14 @@ def distance_form(kind: str, params: tuple):
 # ----------------------------------------------------------------- plain
 def qap_objective_plain(kind: str, params: tuple, eu, ev, ew, perm, D):
     """Σ w_e · D(perm[eu_e], perm[ev_e]) as one float32 sum — the
-    kernel's plain PyTorch twin (0-d float32 tensor)."""
+    kernel's plain PyTorch twin (0-d float32 tensor); with a lane axis
+    ((B, E) edges, (B, n) perm) the (B,) sums of the lanes, each the
+    single call on its lane."""
     import torch
+    if eu.dim() == 2:
+        return torch.stack([qap_objective_plain(kind, params, eu[b], ev[b],
+                                                ew[b], perm[b], D)
+                            for b in range(eu.shape[0])])
     d = distance_form(kind, params)
     perm_l = perm.long()
     return torch.sum(ew * d(perm_l[eu.long()], perm_l[ev.long()], D))
@@ -233,16 +244,18 @@ def on_device(device):
 _SCRATCH: dict = {}
 
 
-def _scratch(device, stream: int):
-    """The K1 launch's scratch for one stream: ``_MAX_BLOCKS`` partials
-    and the ticket counter, zero-filled once; every launch leaves the
-    counter 0 again."""
+def _scratch(device, stream: int, lanes: int = 1):
+    """The K1 launch's scratch for one stream: for each of ``lanes``
+    lanes ``_MAX_BLOCKS`` partials and its ticket counter, zero-filled
+    when made; every launch leaves the counters 0 again.  It grows (a
+    fresh zero-filled buffer) when a launch takes more lanes than it
+    holds."""
     import torch
     key = (device.index, stream)
     buf = _SCRATCH.get(key)
-    if buf is None:
-        buf = _SCRATCH[key] = torch.zeros(_MAX_BLOCKS + 1,
-                                          dtype=torch.float32,
+    need = lanes * (_MAX_BLOCKS + 1)
+    if buf is None or buf.numel() < need:
+        buf = _SCRATCH[key] = torch.zeros(need, dtype=torch.float32,
                                           device=device)
     return buf
 
@@ -251,23 +264,31 @@ def qap_objective_edges(kind: str, params: tuple, eu, ev, ew, perm, D):
     """J = Σ w_e · D(perm[eu_e], perm[ev_e]) as a 0-d float32 tensor on
     the inputs' device: the CUDA kernel (one launch) for CUDA tensors,
     the plain version for CPU tensors.  eu, ev, perm int32; ew float32;
-    D the matrix table (float32/int8/int16) or a dummy for tree/torus."""
+    D the matrix table (float32/int8/int16) or a dummy for tree/torus.
+    With a lane axis — eu, ev, ew (B, E), perm (B, n) — the (B,)
+    objectives of the lanes, still one launch."""
     if not eu.is_cuda:
         return qap_objective_plain(kind, params, eu, ev, ew, perm, D)
     import torch
     dev = eu.device
     check_cuda("qap_objective", dev, eu=eu, ev=ev, ew=ew, perm=perm, D=D)
-    e = int(eu.shape[0])
-    if ev.shape[0] != e or ew.shape[0] != e:
-        raise ValueError("qap_objective: eu, ev, ew differ in length")
+    lanes = eu.shape[:-1]
+    if eu.dim() not in (1, 2) or perm.shape[:-1] != lanes or \
+            ev.shape != eu.shape or ew.shape != eu.shape:
+        raise ValueError(f"qap_objective: eu, ev, ew must share one shape "
+                         f"(E,) or (B, E) and perm be (n,) or (B, n); got "
+                         f"{tuple(eu.shape)}, {tuple(ev.shape)}, "
+                         f"{tuple(ew.shape)}, {tuple(perm.shape)}")
+    b = int(lanes[0]) if lanes else 1
+    e, n = int(eu.shape[-1]), int(perm.shape[-1])
     form, f = form_params(kind, params, D)
     nb = max(1, min(-(-e // _BLOCK), _MAX_BLOCKS))
-    out = torch.empty((), dtype=torch.float32, device=dev)
+    out = torch.empty(lanes, dtype=torch.float32, device=dev)
     with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         OBJECTIVE_KERNEL.launch(
             eu.data_ptr(), ev.data_ptr(), ew.data_ptr(), e,
-            perm.data_ptr(), D.data_ptr(), form, ctypes.addressof(f),
-            ctypes.sizeof(f), _scratch(dev, stream).data_ptr(), nb,
+            perm.data_ptr(), n, b, D.data_ptr(), form, ctypes.addressof(f),
+            ctypes.sizeof(f), _scratch(dev, stream, b).data_ptr(), nb,
             out.data_ptr(), stream)
     return out

@@ -40,9 +40,10 @@ class Boundary:
         self.syncs = None
 
     def read(self, t):
-        """``t.item()`` — one deliberate, counted device->host readback."""
+        """One deliberate, counted device->host readback: ``t.item()``
+        for a 0-d tensor, a numpy array of ``t`` otherwise."""
         self.reads += 1
-        return t.item()
+        return t.item() if t.dim() == 0 else t.cpu().numpy()
 
 
 @contextlib.contextmanager

@@ -637,3 +637,117 @@ def test_serve_on_card_makes_no_decode_sync(cuda):
     assert _flash_launches() == (before[0] + cfg.n_layers, before[1])
     assert out["decode_syncs"] == 0
     assert out["tokens"].shape == (2, 8) and out["tokens"].is_cuda
+
+
+# ------------------------------------------------------------- lane axis
+def _lane_graphs(real):
+    """Four graphs on N vertices with different E and ELL widths: K = 6
+    (grid3d, the wrapper pads it to 8), and random geometric graphs of
+    other degrees."""
+    out = [tc.grid3d(8, 8, 8), tc.random_geometric(N, 0.05, seed=1),
+           tc.random_geometric(N, 0.08, seed=2),
+           tc.random_geometric(N, 0.03, seed=3)]
+    if real:
+        rng = np.random.default_rng(9)
+        out = [tc.graph.from_edges(N, *g.edge_list()[:2],
+                                   rng.random(g.num_edges) * 4.0 + 0.5)
+               for g in out]
+    return out
+
+
+@pytest.mark.parametrize("real", [False, True], ids=["integer", "real"])
+@pytest.mark.parametrize("b", [1, 3, 4])
+@pytest.mark.parametrize("name", ["tree", "torus", "f32real", "int8"])
+def test_lane_axis_kernels_equal_single_launches(cuda, name, b, real):
+    """K1 and K2 with B lanes of different E, K and P, padded to the
+    batch's maxima (inert padding), in one launch each: every lane
+    bit-equal to a single launch on that lane's own, unpadded arrays."""
+    kind, params, D, _ = _form(name, cuda)
+    graphs = _lane_graphs(real)[:b]
+    dgs = [tc.DeviceGraph.from_comm(g, device=cuda, pad_deg_to=1)
+           for g in graphs]
+    pairs = [communication_pairs(g, 3) for g in graphs]
+    k = max(dg.max_deg for dg in dgs)
+    e = max(dg.eu.shape[0] for dg in dgs)
+    p = -(-max(len(x) for x in pairs) // 128) * 128
+    padded = [dg.pad_to(k, e) for dg in dgs]
+    dev_pairs = [tc.device_pairs(x, device=cuda) for x in pairs]
+    lane_pairs = [tc.device_pairs(x, pad_to=p, device=cuda) for x in pairs]
+    rng = np.random.default_rng(b)
+    perms = [torch.from_numpy(rng.permutation(N).astype(np.int32)).to(cuda)
+             for _ in graphs]
+    stack = lambda xs: torch.stack(xs)  # noqa: E731
+    k1, k2 = OBJECTIVE_KERNEL.launches, PAIR_GAIN_KERNEL.launches
+    gains = pair_gains(kind, params, stack([d.nbr for d in padded]),
+                       stack([d.wgt for d in padded]), stack(perms),
+                       stack([u for u, _ in lane_pairs]),
+                       stack([v for _, v in lane_pairs]), D)
+    objs = qap_objective_edges(kind, params, stack([d.eu for d in padded]),
+                               stack([d.ev for d in padded]),
+                               stack([d.ew for d in padded]), stack(perms),
+                               D)
+    assert PAIR_GAIN_KERNEL.launches == k2 + 1
+    assert OBJECTIVE_KERNEL.launches == k1 + 1
+    assert gains.shape == (b, p) and objs.shape == (b,)
+    for i, (dg, (us, vs), perm) in enumerate(zip(dgs, dev_pairs, perms)):
+        one = pair_gains(kind, params, dg.nbr, dg.wgt, perm, us, vs, D)
+        assert torch.equal(gains[i, :len(one)], one)
+        assert torch.all(gains[i, len(one):] == 0.0)
+        assert torch.equal(objs[i], qap_objective_edges(
+            kind, params, dg.eu, dg.ev, dg.ew, perm, D))
+
+
+@pytest.mark.parametrize("multilevel", [True, False])
+def test_multilevel_and_map_many_on_card_equal_cpu(cuda, multilevel):
+    """A multilevel map and a map_many (structurally different graphs) at
+    n = 256 on the card equal the CPU port's, exactly (integer data)."""
+    from repro_torch.core import MultilevelSpec
+    machine = tc.Hierarchy((4, 8, 8), (1.0, 10.0, 100.0))
+    spec = tc.MappingSpec(engine="device", backend="pallas",
+                          neighborhood_dist=4,
+                          multilevel=MultilevelSpec(levels=3,
+                                                    coarsen_min=16)
+                          if multilevel else None)
+    rng = np.random.default_rng(5)
+    stencil = tc.grid3d(8, 8, 4)
+    u, v, _ = stencil.edge_list()
+    graphs = [tc.graph.from_edges(256, u, v, rng.integers(1, 101, len(u))
+                                  * 1.0) for _ in range(2)]
+    graphs.append(tc.random_geometric(256, 0.09, seed=4))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        mapper = tc.Mapper(machine, spec, device=dev)
+        single = mapper.map(graphs[0])
+        many = mapper.map_many(graphs)
+        runs[dev] = (single, many)
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = runs["cpu"], runs["cuda"]
+    for a, b in [(s_cpu, s_gpu)] + list(zip(m_cpu, m_gpu)):
+        assert np.array_equal(a.perm, b.perm)
+        assert a.final_objective == b.final_objective
+        assert a.search_stats.objective_trace == b.search_stats.objective_trace
+    assert np.array_equal(m_gpu[0].perm, s_gpu.perm)
+
+
+def test_multilevel_map_makes_no_uncounted_sync(cuda):
+    """Every host sync of a multilevel card map's contractions and
+    per-level refinements is a counted read: PyTorch's sync debug mode
+    (on inside each counted scope) observes no other."""
+    from repro_torch.core import MultilevelSpec
+    machine = tc.Hierarchy((4, 8, 8), (1.0, 10.0, 100.0))
+    spec = tc.MappingSpec(engine="device", backend="pallas",
+                          neighborhood_dist=4,
+                          multilevel=MultilevelSpec(levels=3,
+                                                    coarsen_min=16))
+    g = tc.grid3d(8, 8, 4)
+    mapper = tc.Mapper(machine, spec, device="cuda")
+    plan = mapper.lower_for(g)
+    res = plan.execute(g)
+    assert sorted(res.perm.tolist()) == list(range(256))
+    pyramid = plan._pyramid(g, spec.seed)
+    assert len(pyramid) == len(plan.engines) == 3
+    for level in pyramid[1:]:
+        assert level.syncs["reads"] > 0
+        assert level.syncs["observed"] == level.syncs["reads"]
+    for eng in plan.engines:
+        assert eng.last_syncs["reads"] > 0
+        assert eng.last_syncs["observed"] == eng.last_syncs["reads"]

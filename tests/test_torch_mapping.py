@@ -7,7 +7,9 @@ objective and search statistics *exactly* on all five topologies
 (integer weights and distances: every float32 sum is exact).  Also:
 spec and plan-spec dict round trips, plan save/load, the ``viem`` CLI's
 permutation file, and the unported pipelines raising (the host engine
-is ported: ``tests/test_torch_search.py``).
+is ported: ``tests/test_torch_search.py``; the multilevel V-cycle:
+``tests/test_torch_multilevel.py``; batches and warm starts:
+``tests/test_torch_batch.py``).
 """
 
 import functools
@@ -173,10 +175,14 @@ def test_cli_writes_the_reference_permutation(tmp_path, capsys):
     assert (tmp_path / "ref").read_text() == (tmp_path / "port").read_text()
 
 
-@pytest.mark.parametrize("flags", [["--multilevel"], ["--portfolio"],
-                                   ["--metrics-out=m.json"],
-                                   ["--profile=t.json"]])
-def test_cli_unported_flags_exit(tmp_path, flags):
+# ``--multilevel`` (flags0) is ported: its parity test is
+# tests/test_torch_multilevel.py::test_cli_multilevel_writes_the_reference
+# _permutation.  The ids keep the remaining cases' names.
+@pytest.mark.parametrize("flags,item", [
+    pytest.param(["--portfolio"], "item 3", id="flags1"),
+    pytest.param(["--metrics-out=m.json"], "item 10", id="flags2"),
+    pytest.param(["--profile=t.json"], "item 10", id="flags3")])
+def test_cli_unported_flags_exit(tmp_path, flags, item):
     from repro_torch.cli import viem as port_cli
     graph = tmp_path / "g.metis"
     rc.write_metis(rc.grid3d(4, 4, 4), graph)
@@ -185,13 +191,25 @@ def test_cli_unported_flags_exit(tmp_path, flags):
                        "--distance_parameter_string=1:10:100",
                        "--device=cpu"] + flags)
     assert "not ported" in str(exc.value.code)
+    assert item in str(exc.value.code)
+
+
+@pytest.mark.parametrize("command,item", [("remap-watch", "item 10"),
+                                          ("lint", "item 8")])
+def test_cli_unported_commands_name_their_item(command, item):
+    from repro_torch.cli import viem as port_cli
+    with pytest.raises(SystemExit) as exc:
+        port_cli.main([command])
+    assert "not ported" in str(exc.value.code)
+    assert item in str(exc.value.code)
 
 
 # ------------------------------------------------------ unported pipelines
+# The two multilevel cases (block0, block2) are ported: their parity
+# tests are tests/test_torch_multilevel.py::
+# test_multilevel_specs_equal_reference.  The id keeps the name.
 @pytest.mark.parametrize("block,item", [
-    ({"multilevel": {"levels": 3}}, "item 2"),
-    ({"portfolio": {"lanes": 2}}, "item 3"),
-    ({"multilevel": {"levels": 2, "coarsen_min": 8}}, "item 2"),
+    pytest.param({"portfolio": {"lanes": 2}}, "item 3", id="block1-item 3"),
 ])
 def test_unported_pipelines_raise(block, item):
     d = dict(_spec("pallas").to_dict(), **block)
