@@ -32,17 +32,41 @@ one JSON line after each, failing loudly on the first fault:
               permutations and real weights: each lane bit-equal to a
               single launch on its arrays; the device time per launch
               beside the 4 lanes' single launches and the bound at 4×
-              the bytes.
-4. main     — ``Mapper(4:16:64 / 1:10:100, MappingSpec(engine="device",
+              the bytes.  Then both over the main graph shared by
+              PORTFOLIO_LANES = 8 lanes (the portfolio's; seeded
+              permutations, real weights): each lane bit-equal to a
+              single launch and to the stacked launch of the graph
+              copied once a lane; the device time per launch beside the
+              8 single launches and the stacked launch.
+4. portfolio — ``Mapper(4:16:64 / 1:10:100, multilevel=MultilevelSpec(),
+              preconfiguration="eco", portfolio=PortfolioSpec()).map(
+              grid3d(16, 16, 16))``: 8 lanes constructed at n = 512 and
+              refined in one sweep loop a level over the shared graph,
+              then up to 4 kick → refine → tournament rounds at n =
+              4096, with the launch counts set to 0 just before and read
+              just after: a bijection, jf equal to the host float64
+              objective, every observed sync a counted read (lane
+              refinements, contractions, rounds; none in the upload of
+              the starts and draws).  Prints the construction, pyramid,
+              lane-refinement and round seconds, each round's incumbent
+              J, kick ms, K1/K2 launches and reads, and jf beside the
+              multilevel map's (ML_REFERENCE_LEVELS: lane 0 has its
+              construction).
+5. portfolio:cpu — a flat portfolio map on the torus (16, 16, 4), n =
+              1024, 4 lanes, 3 rounds, 16 sweeps (PORTFOLIO_CPU: cut
+              from 64 for the CPU side's time) on the card, and the same
+              from the card's lane constructions on the CPU: equal bit
+              for bit (permutation, objectives, trace, swaps).
+6. main     — ``Mapper(4:16:64 / 1:10:100, MappingSpec(engine="device",
               backend="pallas"), device="cuda").map(grid3d(16, 16, 16))``
               with the launch counts set to 0 just before and read just
               after; checks the result (bijection, jf equals the host
               float64 objective, jf <= j0) and that the card's refinement
               equals the plain versions' on the CPU from the same start.
-5. forms    — the same path on a torus and on a fat-tree distance matrix
+7. forms    — the same path on a torus and on a fat-tree distance matrix
               packed to int8, at n = 1024, each equal to the CPU
               refinement from the same start.
-6. multilevel — the main call with ``multilevel=MultilevelSpec(),
+8. multilevel — the main call with ``multilevel=MultilevelSpec(),
               preconfiguration="eco"`` (4 levels, coarsen_min 64: n =
               4096 → 512): every level's refinement equals the plain
               versions' on the CPU from its captured start and the JAX
@@ -53,7 +77,7 @@ one JSON line after each, failing loudly on the first fault:
               Prints the construction, pyramid and per-level refinement
               seconds, K1/K2 launches per level, the coarse tables'
               packing and jf beside the main map's.
-7. batch    — ``map_many`` of 4 graphs at n = 4096 on the main machine
+9. batch    — ``map_many`` of 4 graphs at n = 4096 on the main machine
               under the same spec (3 stencils with seeded integer weights
               in [1, 100], one random geometric graph of about the
               stencil's mean degree), then a flat ``map_many`` of 4 at n
@@ -63,13 +87,13 @@ one JSON line after each, failing loudly on the first fault:
               starts; wall time per graph against the singles, K1/K2
               launches against the singles' sum, counted reads per
               sweep, each call's syncs all counted.
-8. warm     — ``MappingPlan.execute_warm`` on the main map's result
+10. warm    — ``MappingPlan.execute_warm`` on the main map's result
               after a seeded drift (5 % of the vertices gain an edge to a
               seeded partner), the pairs touching them active: equal to
               the CPU warm refinement from the same incumbent, the
               incumbent unchanged, P unchanged, the inactive region
               frozen.
-9. gain     — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
+11. gain    — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
               the main map's graph, machine and final permutation, with
               the launch counts set to 0 just before and read just
               after: G must equal the plain version on the card, the
@@ -91,7 +115,7 @@ one JSON line after each, failing loudly on the first fault:
               largest of 5) with each result dropped and with the
               previous one held, with the page-locked blocks each call
               made, freed and reused, PyTorch's and the port's own.
-10. flash   — holds K4 (flash attention) against its plain version on
+12. flash   — holds K4 (flash attention) against its plain version on
               the card at the serve shape (B 4, T 2048, H 32, KV 8, hd
               128, bf16) and at starcoder2-7b's windowed shape (B 1, T
               8192, H 36, KV 4, hd 128, window 4096, bf16), and on small
@@ -102,7 +126,7 @@ one JSON line after each, failing loudly on the first fault:
               K4, its plain version and ``scaled_dot_product_attention``
               (the yardstick; the port never calls it) beside the bound,
               at both shapes in bf16 and at the serve shape in float32.
-11. serve   — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
+13. serve   — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
               at the full published config (40 layers, random weights)
               with the launch counts set to 0 just before and read just
               after: K4's bf16 route must launch once per layer of the
@@ -125,11 +149,14 @@ route —
 max |kernel − plain|, ms, plain_ms, bound_ms, bound_by, library_ms; K1's
 and K2's ms is the device time per launch, and they add
 ``batch_launches``, their launches in the multilevel batch's
-``map_many``, and ``batch_ms``, the device time of one launch of 4
-lanes); the last is ``{"ok": true,
+``map_many``, ``batch_ms``, the device time of one launch of 4
+lanes, ``portfolio_launches``, their launches in the portfolio map, and
+``shared_ms``, the device time of one launch of 8 lanes over one
+graph); the last is ``{"ok": true,
 "device": {...}}``.  Without a card, or outside a checkout, it exits
-non-zero and prints no result.  ``--stop-after build|kernels`` runs the
-phases up to that one and stops, with neither line.
+non-zero and prints no result.  ``--stop-after
+build|kernels|portfolio`` runs the phases up to that one (portfolio:
+through portfolio:cpu) and stops, with neither line.
 """
 
 from __future__ import annotations
@@ -163,6 +190,12 @@ SIZE = {"hierarchy": "4:16:64", "distances": "1:10:100", "side": 16,
 DEVICE = "cuda"
 # lanes of the lane-axis kernel checks and of the batch cells
 LANES = 4
+# lanes of the shared-graph kernel checks: PortfolioSpec()'s
+PORTFOLIO_LANES = 8
+# the portfolio:cpu cell (flat, the forms cells' torus at n = 1024): its
+# lanes and rounds, and its sweep budget, cut from the spec's 64 so the
+# CPU side's refinements stay near a minute
+PORTFOLIO_CPU = {"lanes": 4, "rounds": 3, "max_sweeps": 16}
 # the batch cells: LANES - 1 stencils with seeded integer weights in
 # [1, 100] and one random geometric graph whose radius puts its mean
 # degree near the stencil's (16^3: 5.625; 16·16·4: 5.25); the flat
@@ -564,8 +597,82 @@ def phase_kernels(forms):
     for rec in (k1, k2):
         rec["library_ms"] = None        # no single PyTorch call computes it
     lane_axis(forms, k1, k2, g, dg, us, vs, eu, ev)
+    shared_graph(forms, k1, k2, g, dg, us, vs, eu, ev)
     emit({"phase": "kernels", "qap_objective": k1, "pair_gains": k2})
     return k1, k2
+
+
+def shared_graph(forms, k1, k2, g, dg, us, vs, eu, ev):
+    """K2 in the tree form and K1 at the main shape over ONE graph
+    shared by PORTFOLIO_LANES lanes (the portfolio's restart lanes: the
+    graph and pair tensors have lane stride 0, the permutations do not),
+    seeded permutations a lane and real weights.  Each lane bit-equal to
+    a single launch on its permutation and to the stacked launch of the
+    same graph copied once a lane; the device time per launch beside the
+    lanes' single launches and the stacked launch, and the bound (the
+    shared tensors read once).  Adds ``shared_ms`` (and the rest under
+    ``shared``) to ``k1`` and ``k2``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import pair_gains, qap_objective_edges
+    dev = torch.device(DEVICE)
+    b, n = PORTFOLIO_LANES, g.n
+    rng = np.random.default_rng(29)
+    kind, params, D = form_of(*forms["tree"], dev)
+    perms = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(b)])
+                             .astype(np.int32)).to(dev)
+    wgt = (dg.wgt * torch.from_numpy(
+        rng.random(tuple(dg.wgt.shape)).astype(np.float32) * 3.0 + 0.5)
+        .to(dev)).contiguous()
+    e, p = int(eu.shape[0]), int(us.shape[0])
+    ew = torch.from_numpy(rng.random(e).astype(np.float32) * 3.0).to(dev)
+    ew[g.num_edges:] = 0.0                          # padding stays inert
+
+    def lanes(x):
+        return x[None].expand(b, *x.shape).contiguous()
+
+    stacked = {"nbr": lanes(dg.nbr), "wgt": lanes(wgt), "us": lanes(us),
+               "vs": lanes(vs), "eu": lanes(eu), "ev": lanes(ev),
+               "ew": lanes(ew)}
+    cases = {
+        "pair_gains": (
+            lambda: pair_gains(kind, params, dg.nbr, wgt, perms, us, vs, D),
+            lambda: pair_gains(kind, params, stacked["nbr"], stacked["wgt"],
+                               perms, stacked["us"], stacked["vs"], D),
+            lambda i: pair_gains(kind, params, dg.nbr, wgt, perms[i], us, vs,
+                                 D),
+            # the shared tensors once, every lane's π and gains
+            (nbytes(us, vs, dg.nbr, wgt, perms) + b * p * 4,
+             b * p * 2.0 * dg.max_deg * 3.0), k2),
+        "qap_objective": (
+            lambda: qap_objective_edges(kind, params, eu, ev, ew, perms, D),
+            lambda: qap_objective_edges(kind, params, stacked["eu"],
+                                        stacked["ev"], stacked["ew"], perms,
+                                        D),
+            lambda i: qap_objective_edges(kind, params, eu, ev, ew, perms[i],
+                                          D),
+            (nbytes(eu, ev, ew, perms, D) + b * 4, b * e * 2.0), k1)}
+    for name, (shared, stack, single, (n_bytes, ops), rec) in cases.items():
+        got = shared()
+        check(torch.equal(got, stack()),
+              f"{name}: the shared-graph launch differs from the stacked one")
+        for i in range(b):
+            check(torch.equal(got[i], single(i)),
+                  f"{name}: shared-graph lane {i} of {b} differs from its "
+                  f"single launch")
+        out = dict(device_ms(shared), lanes=b,
+                   singles_device_ms=device_ms(
+                       lambda: [single(i) for i in range(b)],
+                       iters=ITERS // 4)["device_ms"],
+                   stacked_device_ms=device_ms(stack)["device_ms"],
+                   bit_equal_to_singles=True, bit_equal_to_stacked=True)
+        out["bound_ms"], out["bound_by"] = bound(n_bytes, ops)
+        out["share_of_bound"] = out["bound_ms"] / out["device_ms"]
+        rec["shared"] = out
+        rec["shared_ms"] = out["device_ms"]
+        emit({"phase": "kernels", "kernel": name, "shared_graph": out})
+    del stacked
 
 
 def lane_axis(forms, k1, k2, g, dg, us, vs, eu, ev):
@@ -921,6 +1028,259 @@ def phase_multilevel(topo, g, flat_jf):
            "launches": launches, "levels": levels,
            "packing": [cfg.dist_dtype or "float32"
                        for cfg in plan.kernel_configs]}
+    emit(out)
+    return out
+
+
+def pf_spec():
+    """The portfolio cell's spec: the multilevel cell's (eco, 4 levels)
+    with ``PortfolioSpec()``'s defaults (8 lanes, 4 rounds, tenure 8,
+    kick 0.15, stagnation 3, don't-look bits)."""
+    from repro_torch.core.spec import PortfolioSpec
+    return ml_spec().replace(portfolio=PortfolioSpec())
+
+
+def launches_between(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in MAP_KERNELS}
+
+
+def instrument_portfolio(plan):
+    """Wrap a portfolio plan's lane refinements (each level's
+    ``refine_lanes``), its pyramid, its round loop and the kick it makes
+    so a run records: each lane refinement's level, seconds (ending in a
+    synchronize), K1/K2 launches and syncs; the pyramid's seconds; the
+    launch counts at every kick and at the loop's end.  Returns (the
+    record, a function that restores the plan)."""
+    import torch
+
+    from repro_torch.portfolio import search as pf_search
+    rec = {"levels": [], "kick_marks": []}
+    restore = []
+    for lvl, eng in enumerate(plan.engines):
+        orig = eng.refine_lanes
+
+        def recording(g_, perms, pairs, _eng=eng, _orig=orig, _lvl=lvl,
+                      **kw):
+            before = read_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(g_, perms, pairs, **kw)
+            torch.cuda.synchronize()
+            rec["levels"].append({
+                "level": _lvl, "n": g_.n, "lanes": len(perms),
+                "pairs": len(pairs), "seconds": time.perf_counter() - t0,
+                "launches": launches_between(before, read_launches()),
+                "syncs": dict(_eng.last_syncs),
+                "swaps": [st.swaps for st in out],
+                "jf": [st.final_objective for st in out]})
+            return out
+        eng.refine_lanes = recording
+        restore.append(lambda _eng=eng, _orig=orig: setattr(
+            _eng, "refine_lanes", _orig))
+    orig_pyramid = plan._pyramid
+
+    def timed_pyramid(g_, seed):
+        t0 = time.perf_counter()
+        out = orig_pyramid(g_, seed)
+        rec["pyramid_seconds"] = time.perf_counter() - t0
+        return out
+    plan._pyramid = timed_pyramid
+    restore.append(lambda: setattr(plan, "_pyramid", orig_pyramid))
+    runner = plan.portfolio
+    orig_rounds = runner.run_rounds
+
+    def timed_rounds(*a, **kw):
+        rec["rounds_start"] = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_rounds(*a, **kw)
+        torch.cuda.synchronize()
+        rec["rounds_seconds"] = time.perf_counter() - t0
+        rec["rounds_end"] = read_launches()
+        return out
+    runner.run_rounds = timed_rounds
+    restore.append(lambda: setattr(runner, "run_rounds", orig_rounds))
+    orig_make = pf_search.make_kick
+
+    def make_kick(n, frac):
+        kick = orig_make(n, frac)
+
+        def marked(*a):
+            rec["kick_marks"].append(read_launches())
+            return kick(*a)
+        marked.klen = kick.klen
+        return marked
+    pf_search.make_kick = make_kick
+    restore.append(lambda: setattr(pf_search, "make_kick", orig_make))
+
+    def undo():
+        for fn in restore:
+            fn()
+    return rec, undo
+
+
+def phase_portfolio(topo, g):
+    """``Mapper(..., pf_spec()).map(g)`` at the main cell's n on the main
+    machine: 8 lanes constructed at n = 512, refined in one sweep loop a
+    level over the shared graph, then the kick → refine → tournament
+    rounds at n = 4096 (PortfolioSpec() defaults).  Checks a bijection,
+    jf equal to the host float64 objective, K1 and K2 launched, and every
+    observed sync a counted read (each level's lane refinement, each
+    contraction, the round loop; none in the upload of the starts and
+    draws).  Prints the construction, pyramid, lane-refinement and round
+    seconds, each round's incumbent J, kick ms, K1/K2 launches and reads,
+    and jf beside the multilevel map's under the same seed (lane 0 has
+    its construction: the port's stand-in for the reference's
+    portfolio-against-restarts bench)."""
+    import torch
+
+    from repro_torch.core import Mapper, qap_objective
+    mapper = Mapper(topo, pf_spec(), device=DEVICE)
+    plan = mapper.lower_for(g)
+    runner = plan.portfolio
+    rec, undo = instrument_portfolio(plan)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = mapper.map(g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    undo()
+    perm = res.perm
+    check(sorted(perm.tolist()) == list(range(g.n)),
+          "portfolio: result is not a bijection")
+    jf_host = qap_objective(g, topo, perm)
+    check(res.final_objective == jf_host,
+          f"portfolio: jf {res.final_objective} != host {jf_host}")
+    check_launched(launches, MAP_KERNELS, "portfolio")
+    pyramid = plan._pyramid(g, plan.spec.seed)          # the cached one
+    check(len(rec["levels"]) == len(pyramid),
+          f"portfolio: {len(rec['levels'])} lane refinements for "
+          f"{len(pyramid)} levels")
+    for lv in rec["levels"]:
+        check_counted(lv["syncs"], f"portfolio level {lv['level']}")
+    for lvl in range(1, len(pyramid)):
+        check_counted(pyramid[lvl].syncs,
+                      f"portfolio contraction to level {lvl}")
+    syncs = dict(runner.last_syncs)
+    check_counted(syncs, "portfolio rounds")
+    check(syncs["upload"] == 0,
+          f"portfolio: the upload of starts and draws synced "
+          f"{syncs['upload']} times")
+    marks = rec["kick_marks"] + [rec["rounds_end"]]
+    rounds = []
+    for i, row in enumerate(runner.last_rounds):
+        rounds.append(dict(row, launches=launches_between(marks[i],
+                                                          marks[i + 1])))
+    trace = res.search_stats.objective_trace
+    ml_jf = ML_REFERENCE_LEVELS[-1][1]
+    out = {"phase": "portfolio", "n": g.n,
+           "spec": plan.describe()["portfolio"],
+           "levels_built": len(pyramid),
+           "j0": res.initial_objective, "jf": res.final_objective,
+           "objective_trace": trace, "rounds_run": len(trace) - 1,
+           "multilevel_jf": ml_jf, "jf_over_multilevel": res.final_objective
+           / ml_jf,
+           "construction_seconds": res.construction_seconds,
+           "pyramid_seconds": rec.get("pyramid_seconds"),
+           "search_seconds": res.search_seconds, "map_seconds": wall,
+           "lane_refinements": [
+               {k: v for k, v in lv.items() if k != "syncs"}
+               | {"reads": lv["syncs"]["reads"],
+                  "syncs_observed": lv["syncs"]["observed"],
+                  "passes": lv["syncs"]["passes"]}
+               for lv in rec["levels"]],
+           "rounds_seconds": rec["rounds_seconds"],
+           "rounds_launches": launches_between(rec["rounds_start"],
+                                               rec["rounds_end"]),
+           "rounds_reads": syncs["reads"],
+           "rounds_syncs_observed": syncs["observed"],
+           "upload_syncs_observed": syncs["upload"],
+           "rounds": rounds, "launches": launches,
+           "swaps": res.search_stats.swaps,
+           "evaluated": res.search_stats.evaluated,
+           "max_memory_allocated": peak}
+    emit(out)
+    return out
+
+
+def phase_portfolio_cpu():
+    """A portfolio map on the card held to the CPU (plain versions) bit
+    for bit: flat, the forms cells' torus (16, 16, 4) at n = 1024, 4
+    lanes, 3 rounds, with the sweep budget of PORTFOLIO_CPU (cut from
+    64).  The CPU plan takes the card's lane constructions (host numpy,
+    the same code on both sides) instead of constructing them again;
+    the lane refinements, kicks and rounds run on each side.  Equal:
+    permutation, j0, jf, objective trace, swaps and evaluated pairs;
+    every observed sync of the card's run a counted read."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Mapper, MappingSpec, grid3d
+    from repro_torch.core.spec import PortfolioSpec
+    from repro_torch.topology import TorusTopology
+    side = SIZE["side"]
+    topo = TorusTopology((side, side, side // 4))
+    g = grid3d(side, side, side // 4)
+    spec = MappingSpec(engine="device", backend="pallas",
+                       max_sweeps=PORTFOLIO_CPU["max_sweeps"],
+                       portfolio=PortfolioSpec(
+                           lanes=PORTFOLIO_CPU["lanes"],
+                           rounds=PORTFOLIO_CPU["rounds"]))
+    card = Mapper(topo, spec, device=DEVICE).lower_for(g)
+    runner = card.portfolio
+    captured = {}
+    orig = runner.construct_lanes
+
+    def capture(*a, **kw):
+        out = orig(*a, **kw)
+        captured["perms"] = [p.copy() for p in out]
+        return out
+    runner.construct_lanes = capture
+    reset_launches()
+    t0 = time.perf_counter()
+    res = card.execute(g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    runner.construct_lanes = orig
+    check_launched(launches, MAP_KERNELS, "portfolio:cpu")
+    syncs = dict(runner.last_syncs)
+    check_counted(syncs, "portfolio:cpu rounds")
+    check_counted(card.engines[0].last_syncs, "portfolio:cpu lanes")
+    check(syncs["upload"] == 0, "portfolio:cpu: the upload synced")
+    cpu = Mapper(topo, spec, device="cpu").lower_for(g)
+    cpu.portfolio.construct_lanes = lambda *a, **kw: [
+        p.copy() for p in captured["perms"]]
+    t1 = time.perf_counter()
+    ref = cpu.execute(g)
+    cpu_s = time.perf_counter() - t1
+    a, b = ref.search_stats, res.search_stats
+    check(np.array_equal(ref.perm, res.perm) and
+          ref.initial_objective == res.initial_objective and
+          ref.final_objective == res.final_objective and
+          a.objective_trace == b.objective_trace and a.swaps == b.swaps and
+          a.evaluated == b.evaluated,
+          "portfolio:cpu: the card's portfolio differs from the CPU's")
+    out = {"phase": "portfolio:cpu", "n": g.n, "lanes": spec.portfolio.lanes,
+           "rounds": spec.portfolio.rounds,
+           "max_sweeps": PORTFOLIO_CPU["max_sweeps"],
+           "max_sweeps_cut_from": 64,
+           "j0": res.initial_objective, "jf": res.final_objective,
+           "objective_trace": b.objective_trace, "swaps": b.swaps,
+           "construction_seconds": res.construction_seconds,
+           "search_seconds": res.search_seconds, "map_seconds": wall,
+           "cpu_search_seconds": cpu_s, "launches": launches,
+           "rounds_reads": syncs["reads"],
+           "rounds_syncs_observed": syncs["observed"],
+           "kick_ms": [r["kick_ms"] for r in runner.last_rounds],
+           "round_seconds": [r["seconds"] for r in runner.last_rounds],
+           "cpu_kick_ms": [r["kick_ms"] for r in cpu.portfolio.last_rounds],
+           "cpu_round_seconds": [r["seconds"]
+                                 for r in cpu.portfolio.last_rounds],
+           "equals_cpu": True}
     emit(out)
     return out
 
@@ -1727,7 +2087,8 @@ def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one CUDA card (see the module notes).")
-    ap.add_argument("--stop-after", choices=("build", "kernels"),
+    ap.add_argument("--stop-after", choices=("build", "kernels",
+                                             "portfolio"),
                     help="run the phases up to this one and stop, with "
                          "no kernels line and no result line")
     args = ap.parse_args(argv)
@@ -1751,6 +2112,10 @@ def main(argv) -> int:
     main_topo = as_topology(Hierarchy.from_strings(SIZE["hierarchy"],
                                                    SIZE["distances"]))
     main_g = grid3d(side, side, side)
+    pf = phase_portfolio(main_topo, main_g)
+    phase_portfolio_cpu()
+    if args.stop_after == "portfolio":
+        return 0
     main_run, main_perm, main_pairs = run_map(main_topo, main_g, "main",
                                               compare_cpu=True)
     quarter = grid3d(side, side, side // 4)
@@ -1795,10 +2160,14 @@ def main(argv) -> int:
                         "library_ms": rec["library_ms"]})
         if "batch_ms" in rec:
             # the lane axis: launches in the multilevel batch's map_many
-            # and the device time of one launch of LANES lanes
+            # and the device time of one launch of LANES lanes; the
+            # shared graph: launches in the portfolio map and the device
+            # time of one launch of PORTFOLIO_LANES lanes over one graph
             kernels[-1].update(
                 batch_launches=batch_ml["batch_launches"][name],
-                batch_ms=rec["batch_ms"])
+                batch_ms=rec["batch_ms"],
+                portfolio_launches=pf["launches"][name],
+                shared_ms=rec["shared_ms"])
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,9 @@ Usage:
         [--communication_neighborhood_dist=10]
         [--engine=host|device]            # host numpy drivers / sweep engine
         [--multilevel] [--multilevel_levels=N] [--multilevel_coarsen_min=N]
+        [--portfolio] [--portfolio_lanes=8] [--portfolio_rounds=4]
+        [--portfolio_tabu_tenure=8] [--portfolio_kick=0.15]
+        [--portfolio_stagnation=3]
         [--parallel_sweeps]               # host engine: batched sweeps
         [--backend=numpy|pallas]          # pallas: the CUDA objective
         [--kernel_block_rows=N] [--kernel_lanes=N]
@@ -26,10 +29,11 @@ Usage:
 The flags are the JAX package's ``repro.cli.viem`` flags, and the
 defaults are its defaults (``engine="host"`` with the communication
 neighborhood; ``--multilevel`` selects the V-cycle over the device
-engine, its knobs following ``--preconfiguration_mapping``).  Those of
-paths the port has not taken over yet — ``--portfolio*``,
-``--profile``, ``--metrics-out`` and the ``remap-watch``/``lint``
-subcommands — exit with an error that names the ROADMAP item.
+engine, its knobs following ``--preconfiguration_mapping``;
+``--portfolio`` the multistart search over the device engine).  Those of
+paths the port has not taken over yet — ``--profile``,
+``--metrics-out`` and the ``remap-watch``/``lint`` subcommands — exit
+with an error that names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -125,15 +129,26 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--multilevel_coarsen_min", type=int, default=None,
                     help="stop contracting below this many coarse "
                          "vertices")
-    ap.add_argument("--portfolio", action=argparse.BooleanOptionalAction,
-                    default=None, help="not ported yet (exits)")
-    for flag, typ in (("--portfolio_lanes", int),
-                      ("--portfolio_rounds", int),
-                      ("--portfolio_tabu_tenure", int),
-                      ("--portfolio_kick", float),
-                      ("--portfolio_stagnation", int)):
-        ap.add_argument(flag, type=typ, default=None,
-                        help="not ported yet (exits)")
+    ap.add_argument("--portfolio",
+                    action=argparse.BooleanOptionalAction, default=None,
+                    help="device-side portfolio search: multistart lanes "
+                         "with tabu memory, perturbation kicks, and "
+                         "tournament selection (repro_torch.portfolio)")
+    ap.add_argument("--portfolio_lanes", type=int, default=None,
+                    help="restart trajectories per request (one sweep "
+                         "loop; 1 = single-trajectory)")
+    ap.add_argument("--portfolio_rounds", type=int, default=None,
+                    help="refine rounds at the finest level (rounds-1 "
+                         "perturb→refine rounds after the first)")
+    ap.add_argument("--portfolio_tabu_tenure", type=int, default=None,
+                    help="sweeps of tabu memory per applied exchange "
+                         "(0 = monotone sweep, bit-identical)")
+    ap.add_argument("--portfolio_kick", type=float, default=None,
+                    help="fraction of vertices each between-round "
+                         "perturbation kick touches")
+    ap.add_argument("--portfolio_stagnation", type=int, default=None,
+                    help="stop after this many rounds without improving "
+                         "the incumbent")
     ap.add_argument("--kernel_block_rows", type=int, default=None)
     ap.add_argument("--kernel_lanes", type=int, default=None)
     ap.add_argument("--kernel_quantize", default=None,

@@ -26,9 +26,10 @@ pipeline on both engines (``device``: the refinement engine; ``host``:
 the numpy search drivers of :mod:`.local_search`), the multilevel
 V-cycle (:mod:`repro_torch.multilevel`), batches (``execute_batch``:
 every level's refinement is one batched engine call), warm starts
-(``execute_warm``) and the dense gain matrix (``gain_matrix``: K3 on the
-``pallas`` backend).  Lowering a spec with a portfolio block raises
-``NotImplementedError`` naming its ROADMAP item.
+(``execute_warm``), the portfolio search (``_execute_portfolio``: L
+restart lanes of one graph in one sweep loop per level, then kick →
+refine → tournament rounds; :mod:`repro_torch.portfolio`) and the dense
+gain matrix (``gain_matrix``: K3 on the ``pallas`` backend).
 
 A plan is portable: ``to_json()``/``save()`` serialize its
 :class:`~repro_torch.core.spec.PlanSpec` (spec + machine model +
@@ -46,7 +47,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..obs import get_tracer
+from ..obs import EngineTelemetry, get_tracer
 from ..runtime.boundary import host_boundary
 from ..runtime.device import resolve_device
 from .construction import resolve_construction
@@ -231,12 +232,6 @@ def empty_host_cache() -> None:
 _PLAN_CACHE_CAPS = {"pairs": 16, "pyramids": 8}
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"item {item}); use the JAX package (repro) for it")
-
-
 class MappingPlan:
     """One lowered (machine × spec × bucket × device) pipeline — see
     module docstring.  Build via ``Mapper.lower(...)`` (session-cached)
@@ -264,8 +259,6 @@ class MappingPlan:
         self.topology = as_topology(machine)
         self.spec = (spec or MappingSpec()).validate()
         self.bucket = None if bucket is None else bucket.validate()
-        if self.spec.portfolio is not None:
-            raise _not_ported("portfolio search", 3)
         caps = dict(_PLAN_CACHE_CAPS)
         caps.update(cache_caps or {})
         # --- stage 1 (lower): resolve every handle the hot path needs
@@ -328,6 +321,18 @@ class MappingPlan:
                 eng, built = engine_factory(m, self.max_sweeps, cfg)
                 self.engine_builds += bool(built)
                 self.engines.append(eng)
+        # portfolio runner: the multistart/tabu search layer over the
+        # finest-level engine (repro_torch.portfolio) — per-lane
+        # constructions resolved here, at lower time, like everything else
+        self.portfolio = None
+        if self.spec.portfolio is not None:
+            from ..portfolio import PortfolioRunner
+            names = dict.fromkeys(
+                [self.spec.construction]
+                + list(self.spec.portfolio.constructions or ()))
+            self.portfolio = PortfolioRunner(
+                self.engines[0], self.spec.portfolio,
+                [(nm, resolve_construction(nm)) for nm in names])
         self.kernel_compiles = 0
         self._objective_fn = None
         if self.spec.backend == "pallas":
@@ -371,7 +376,8 @@ class MappingPlan:
             "multilevel": (None if self._ml is None else
                            {"levels": self._ml[0],
                             "coarsen_min": self._ml[1]}),
-            "portfolio": None,
+            "portfolio": (None if self.portfolio is None else
+                          self.portfolio.describe()),
             "kernels": {
                 "backend": self.kernel_backend,
                 "configs": [cfg.to_dict() for cfg in self.kernel_configs],
@@ -542,7 +548,9 @@ class MappingPlan:
         self.executes += 1
         with _TR.span("plan.execute", n=g.n, engine=self.spec.engine,
                       seed=seed) as sp:
-            if self._ml is not None:
+            if self.portfolio is not None:
+                res = self._execute_portfolio(g, seed, telemetry)
+            elif self._ml is not None:
                 res = self._execute_batch_multilevel([g], seed,
                                                      telemetry)[0]
             else:
@@ -663,11 +671,17 @@ class MappingPlan:
 
         Every graph must fit the plan bucket (they need not be
         structurally identical — padding into the common bucket is
-        inert), so each result equals the graph's single ``execute``."""
+        inert), so each result equals the graph's single ``execute``.
+        With a portfolio each graph runs its own: the lane axis already
+        holds the portfolio's lanes (lanes × graphs would multiply the
+        device footprint, not amortize it)."""
         graphs = list(graphs)
         if not graphs:
             return []
         seed = self.spec.seed if seed is None else int(seed)
+        if self.portfolio is not None:
+            return [self.execute(g, seed=seed, telemetry=telemetry)
+                    for g in graphs]
         if self._ml is not None:
             for g in graphs:
                 self._check(g)
@@ -761,6 +775,92 @@ class MappingPlan:
                              r.construction_seconds,
                              elapsed - r.construction_seconds, r.stats)
                 for g, r in zip(graphs, results)]
+
+    # ------------------------------------------------------------- portfolio
+    def _execute_portfolio(self, g: CommGraph, seed: int,
+                           telemetry: bool = False) -> MappingResult:
+        """The portfolio pipeline (:mod:`repro_torch.portfolio`): L lanes
+        constructed with per-lane seeds, refined per level in ONE sweep
+        loop over the shared graph (descending the V-cycle when the spec
+        is multilevel), then the kick → refine → tournament rounds at the
+        finest level.  ``PortfolioSpec(lanes=1, rounds=1,
+        tabu_tenure=0)`` is the non-portfolio pipeline bit for bit.
+
+        With ``telemetry``, the finest-level lane refinement collects
+        per-lane engine counters and the merged
+        :class:`~repro_torch.obs.EngineTelemetry` rides the result's
+        stats (the round loop itself collects none — sweep/swap totals
+        only).  The accounting is the JAX package's."""
+        runner = self.portfolio
+        empty = np.zeros((0, 2), np.int64)
+        lane_stats = None
+        pyramid = None
+        if self._ml is not None:
+            with _TR.span("plan.pyramid", n=g.n):
+                pyramid = self._pyramid(g, seed)
+        with _TR.span("plan.construct", lanes=runner.pspec.lanes) as csp:
+            if pyramid is not None:
+                coarsest = pyramid[-1]
+                perms = runner.construct_lanes(
+                    coarsest.graph, coarsest.machine, self._cfg, seed)
+            else:
+                perms = runner.construct_lanes(g, self.topology,
+                                               self._cfg, seed)
+        t_cons = csp.dur
+        with _TR.span("plan.refine", n=g.n,
+                      lanes=runner.pspec.lanes) as rsp:
+            if pyramid is not None:
+                from ..multilevel.coarsen import project_perm
+                j0s = []
+                pairs0 = pyramid[0].pairs
+                for lvl in range(len(pyramid) - 1, -1, -1):
+                    level = pyramid[lvl]
+                    if lvl == 0:
+                        j0s = [self.objective(level.graph, p)
+                               for p in perms]
+                    else:
+                        j0s = [qap_objective(level.graph, level.machine,
+                                             p) for p in perms]
+                    lane_stats = runner.refine_lanes(
+                        level.graph, perms, level.pairs, j0s=j0s,
+                        bucket=self.bucket if lvl == 0 else None,
+                        engine=self.engines[lvl],
+                        telemetry=telemetry and lvl == 0)
+                    if lvl > 0:
+                        perms = [project_perm(p, level.fine_u,
+                                              level.fine_v)
+                                 for p in perms]
+            else:
+                j0s = [self.objective(g, p) for p in perms]
+                pairs0 = self._pairs(g, seed) if self._nb is not None \
+                    else empty
+                lane_stats = runner.refine_lanes(g, perms, pairs0,
+                                                 j0s=j0s,
+                                                 bucket=self.bucket,
+                                                 telemetry=telemetry)
+            with _TR.span("portfolio.rounds", n=g.n) as psp:
+                res = runner.run_rounds(g, perms, pairs0, j0s,
+                                        bucket=self.bucket, seed=seed)
+                psp.attrs["syncs"] = dict(runner.last_syncs)
+            rsp.attrs["rounds"] = res.rounds
+        t_search = rsp.dur
+        j0 = min(j0s) if j0s else self.objective(g, res.perm)
+        stats = SearchStats()
+        stats.initial_objective = j0
+        stats.final_objective = qap_objective(g, self.topology, res.perm)
+        stats.swaps = res.swaps
+        stats.evaluated = res.sweeps * len(pairs0)
+        if self._ml is None:
+            stats.swaps += sum(s.swaps for s in lane_stats)
+            stats.evaluated += sum(s.evaluated for s in lane_stats)
+        stats.objective_trace = [j0] + res.round_objectives
+        if telemetry and lane_stats:
+            tels = [s.telemetry for s in lane_stats
+                    if s.telemetry is not None]
+            if tels:
+                stats.telemetry = EngineTelemetry.merge(tels)
+                rsp.attrs["telemetry"] = stats.telemetry
+        return self._finish(g, res.perm, j0, t_cons, t_search, stats)
 
 
 def _plan_from_dict(d: dict, device=None) -> MappingPlan:

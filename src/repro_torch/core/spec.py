@@ -250,12 +250,11 @@ class MultilevelSpec:
 
 @dataclass(frozen=True)
 class PortfolioSpec:
-    """Knobs for the device-side portfolio search (parsed and
-    serialized; lowering raises ``NotImplementedError`` until ROADMAP
-    queue 1, item 3 lands): ``lanes`` restart trajectories run as ONE
-    vmapped engine call per level, then ``rounds - 1`` perturb→refine
-    rounds at the finest level with device-side tournament selection of
-    the incumbent.
+    """Knobs for the device-side portfolio search
+    (:mod:`repro_torch.portfolio`): ``lanes`` restart trajectories run as
+    ONE sweep loop per level over the shared graph, then ``rounds - 1``
+    perturb→refine rounds at the finest level with device-side
+    tournament selection of the incumbent.
 
     ``tabu_tenure`` sweeps of tabu memory per applied exchange (0 turns
     the tabu masking off — bit-for-bit the monotone sweep);
@@ -402,8 +401,8 @@ class MappingSpec:
     coarsen → map → uncoarsen V-cycle over the device engine
     (:mod:`repro_torch.multilevel`); ``None`` (the default) keeps the flat
     single-level pipeline, and ``MultilevelSpec(levels=1)`` is
-    bit-for-bit identical to it.  ``portfolio`` enables the vmapped
-    multistart search with tabu memory (not ported yet); ``None``
+    bit-for-bit identical to it.  ``portfolio`` enables the multistart
+    search with tabu memory (:mod:`repro_torch.portfolio`); ``None``
     keeps the single-trajectory pipeline, and
     ``PortfolioSpec(lanes=1, rounds=1, tabu_tenure=0)`` is bit-for-bit
     identical to it.

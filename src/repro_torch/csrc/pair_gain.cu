@@ -43,14 +43,18 @@
 // ms, which divides by nothing: its two table gathers a slot, into a
 // 16 MiB table that lives in L2, hold it.
 //
-// Lanes: one launch covers B independent instances (a batch of graphs
-// under one machine), gridDim.y = B.  Lane b reads nbr/wgt at b·n·K,
-// π at b·n and us/vs at b·P and writes out at b·P; the machine's D is
-// shared.  A single call is B = 1, in the instance whose lane offset is
-// a compile-time 0 (the offsets cost the tree form 3 % a launch).  This is the port's counterpart of
-// jax.vmap over the Pallas call (engine/sweep.py), which adds a grid
-// axis on the TPU; each lane's bits equal a launch of that lane alone,
-// since a pair's arithmetic never looks outside its own lane.
+// Lanes: one launch covers B independent instances, gridDim.y = B, in
+// one of two layouts.  Stacked lanes (a batch of graphs under one
+// machine): lane b reads nbr/wgt at b·n·K, π at b·n and us/vs at b·P.
+// A shared graph (the portfolio's restart lanes of one graph): nbr, wgt,
+// us and vs are read by every lane at offset 0, and only π (at b·n)
+// differs.  Either way lane b writes out at b·P, and the machine's D is
+// shared.  A single call is B = 1, in the instance whose lane offsets are
+// a compile-time 0 (the offsets cost the tree form 3 % a launch).  This
+// is the port's counterpart of jax.vmap over the Pallas call
+// (engine/sweep.py), which adds a grid axis on the TPU, with in_axes=None
+// for the shared arrays; each lane's bits equal a launch of that lane
+// alone, since a pair's arithmetic never looks outside its own lane.
 //
 // Order: each side is reduced over its K slots in order, then the two
 // sides are added — the reference's order.  The `k != other` exclusion
@@ -88,10 +92,14 @@ __device__ __forceinline__ float side_gain(
   return s;
 }
 
-// LANES is false for a launch of one lane (B = 1, every single call):
-// its lane offsets are then a compile-time 0 and the pointers are used
-// as given, which keeps the lane axis out of the single call's time.
-template <int FORM, int L, bool LANES>
+// The lane layouts.  kOneLane is a launch of one lane (B = 1, every
+// single call): its lane offsets are a compile-time 0 and the pointers
+// are used as given, which keeps the lane axis out of the single call's
+// time.  kStacked offsets every per-graph array by its lane; kShared
+// only π and the output.
+enum Lanes { kOneLane, kStacked, kShared };
+
+template <int FORM, int L, int LANES>
 __global__ void __launch_bounds__(kBlock)
 pair_gains(const int* __restrict__ nbr, const float* __restrict__ wgt, int K,
            int n, const int* __restrict__ perm, const int* __restrict__ us,
@@ -99,13 +107,17 @@ pair_gains(const int* __restrict__ nbr, const float* __restrict__ wgt, int K,
            const __grid_constant__ FormParams f, float* __restrict__ out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= P) return;
-  if constexpr (LANES) {
+  if constexpr (LANES == kStacked) {
     const size_t lane = blockIdx.y;
     nbr = lane_base(nbr, lane * n * K);
     wgt = lane_base(wgt, lane * n * K);
     perm = lane_base(perm, lane * n);
     us += lane * P;
     vs += lane * P;
+    out += lane * P;
+  } else if constexpr (LANES == kShared) {
+    const size_t lane = blockIdx.y;
+    perm = lane_base(perm, lane * n);
     out += lane * P;
   }
   const int u = us[i];
@@ -131,7 +143,7 @@ pair_gains(const int* __restrict__ nbr, const float* __restrict__ wgt, int K,
 // forms have no keys.
 constexpr int kFewLevels = 4;
 
-template <int FORM, bool LANES>
+template <int FORM, int LANES>
 void launch(const int* nbr, const float* wgt, int K, int n, const int* perm,
             const int* us, const int* vs, int P, int B, const void* D,
             const FormParams& f, float* out, cudaStream_t stream) {
@@ -146,13 +158,18 @@ void launch(const int* nbr, const float* wgt, int K, int n, const int* perm,
 
 template <int FORM>
 void launch(const int* nbr, const float* wgt, int K, int n, const int* perm,
-            const int* us, const int* vs, int P, int B, const void* D,
-            const FormParams& f, float* out, cudaStream_t stream) {
-  if (B > 1)
-    launch<FORM, true>(nbr, wgt, K, n, perm, us, vs, P, B, D, f, out, stream);
+            const int* us, const int* vs, int P, int B, bool shared,
+            const void* D, const FormParams& f, float* out,
+            cudaStream_t stream) {
+  if (B == 1)
+    launch<FORM, kOneLane>(nbr, wgt, K, n, perm, us, vs, P, B, D, f, out,
+                           stream);
+  else if (shared)
+    launch<FORM, kShared>(nbr, wgt, K, n, perm, us, vs, P, B, D, f, out,
+                          stream);
   else
-    launch<FORM, false>(nbr, wgt, K, n, perm, us, vs, P, B, D, f, out,
-                        stream);
+    launch<FORM, kStacked>(nbr, wgt, K, n, perm, us, vs, P, B, D, f, out,
+                           stream);
 }
 
 }  // namespace
@@ -161,14 +178,18 @@ void launch(const int* nbr, const float* wgt, int K, int n, const int* perm,
 extern "C" {
 
 // out[b·P + i] = gain of swapping us[b·P + i] and vs[b·P + i] under lane
-// b's π, for B lanes of n vertices, P pairs and K slots each.  K % 4 == 0
-// and nbr, wgt 16-byte aligned; ``f`` points at the host's FormParams of
-// ``f_bytes`` bytes.  Returns a cudaError_t code.
+// b's π, for B lanes of n vertices, P pairs and K slots each; with
+// ``shared`` = 1 every lane reads the one graph (nbr, wgt) and pair list
+// (us, vs) at offset 0.  K % 4 == 0 and nbr, wgt 16-byte aligned; ``f``
+// points at the host's FormParams of ``f_bytes`` bytes.  Returns a
+// cudaError_t code.
 int viem_pair_gains(const int* nbr, const float* wgt, int K, int n,
                     const int* perm, const int* us, const int* vs, int P,
-                    int B, const void* D, int form, const viem::FormParams* f,
-                    int f_bytes, float* out, void* stream) {
+                    int B, int shared, const void* D, int form,
+                    const viem::FormParams* f, int f_bytes, float* out,
+                    void* stream) {
   if (P < 0 || K < 0 || K % 4 != 0 || n < 0 || B < 1 || B > 65535 ||
+      (shared != 0 && shared != 1) ||
       reinterpret_cast<uintptr_t>(nbr) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wgt) % 16 != 0 ||
       f_bytes != static_cast<int>(sizeof(viem::FormParams)) ||
@@ -177,7 +198,8 @@ int viem_pair_gains(const int* nbr, const float* wgt, int K, int n,
   if (P == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VIEM_LAUNCH(FORM) \
-  viem::launch<FORM>(nbr, wgt, K, n, perm, us, vs, P, B, D, *f, out, s)
+  viem::launch<FORM>(nbr, wgt, K, n, perm, us, vs, P, B, shared != 0, D, \
+                     *f, out, s)
   switch (form) {
     case viem::kTree: VIEM_LAUNCH(viem::kTree); break;
     case viem::kTorus: VIEM_LAUNCH(viem::kTorus); break;

@@ -31,7 +31,10 @@
 // at b·E and π at b·n, writes out[b], and has its own kMaxBlocks partials
 // and its own ticket, so lane b's last block sums lane b's partials only.
 // The grid still depends only on E, so each lane's bits equal a single
-// launch on that lane's arrays; a single call is B = 1.
+// launch on that lane's arrays; a single call is B = 1.  In the shared-
+// graph instance (the portfolio's restart lanes of one graph) every lane
+// reads the one edge list at offset 0 and only π (at b·n), the output,
+// the partials and the ticket keep a lane offset.
 //
 // Where it stands (H100, main shape): one launch of ~4.7 µs on the
 // device against ~37 µs of host time in its wrapper (PERF.md); a call
@@ -58,8 +61,9 @@ __device__ __forceinline__ float block_sum(float v, float* sm) {
 }
 
 // ``scratch`` holds, for each lane, kMaxBlocks partials, then the
-// lane's ticket counter (0 between launches).
-template <int FORM>
+// lane's ticket counter (0 between launches).  SHARED: the edge list has
+// lane stride 0.
+template <int FORM, bool SHARED>
 __global__ void __launch_bounds__(kBlock)
 objective(const int* __restrict__ eu, const int* __restrict__ ev,
           const float* __restrict__ ew, int E, const int* __restrict__ perm,
@@ -69,9 +73,11 @@ objective(const int* __restrict__ eu, const int* __restrict__ ev,
   __shared__ float sm[kBlock];
   __shared__ bool last;
   const size_t lane = blockIdx.y;
-  eu += lane * E;
-  ev += lane * E;
-  ew += lane * E;
+  if constexpr (!SHARED) {
+    eu += lane * E;
+    ev += lane * E;
+    ew += lane * E;
+  }
   perm = lane_base(perm, lane * n);
   scratch += lane * (kMaxBlocks + 1);
   out += lane;
@@ -107,10 +113,15 @@ objective(const int* __restrict__ eu, const int* __restrict__ ev,
 
 template <int FORM>
 void launch(const int* eu, const int* ev, const float* ew, int E,
-            const int* perm, int n, int B, const void* D, const FormParams& f,
-            float* scratch, int nb, float* out, cudaStream_t stream) {
-  objective<FORM><<<dim3(nb, B), kBlock, 0, stream>>>(eu, ev, ew, E, perm, n,
-                                                      D, f, scratch, out);
+            const int* perm, int n, int B, bool shared, const void* D,
+            const FormParams& f, float* scratch, int nb, float* out,
+            cudaStream_t stream) {
+  if (shared)
+    objective<FORM, true><<<dim3(nb, B), kBlock, 0, stream>>>(
+        eu, ev, ew, E, perm, n, D, f, scratch, out);
+  else
+    objective<FORM, false><<<dim3(nb, B), kBlock, 0, stream>>>(
+        eu, ev, ew, E, perm, n, D, f, scratch, out);
 }
 
 }  // namespace
@@ -120,23 +131,27 @@ extern "C" {
 
 // out[b] = Σ_e ew[b·E + e] · D(π_b(eu[b·E + e]), π_b(ev[b·E + e])), π_b
 // the n entries of perm at b·n, for B lanes in one launch of ``nb``
-// blocks a lane (1 <= nb <= kMaxBlocks).  ``scratch`` holds B ·
+// blocks a lane (1 <= nb <= kMaxBlocks); with ``shared`` = 1 every lane
+// reads the one edge list eu, ev, ew at offset 0.  ``scratch`` holds B ·
 // (kMaxBlocks + 1) floats, each lane's counter 0 (zero-filled before the
 // first launch; each launch leaves them 0), and is used by one stream at
 // a time.  ``f`` points at the host's FormParams of ``f_bytes`` bytes.
 // Returns a cudaError_t code.
 int viem_qap_objective(const int* eu, const int* ev, const float* ew, int E,
-                       const int* perm, int n, int B, const void* D, int form,
-                       const viem::FormParams* f, int f_bytes,
-                       float* scratch, int nb, float* out, void* stream) {
+                       const int* perm, int n, int B, int shared,
+                       const void* D, int form, const viem::FormParams* f,
+                       int f_bytes, float* scratch, int nb, float* out,
+                       void* stream) {
   if (E < 0 || n < 0 || B < 1 || B > 65535 || nb < 1 ||
+      (shared != 0 && shared != 1) ||
       nb > viem::kMaxBlocks ||
       f_bytes != static_cast<int>(sizeof(viem::FormParams)) ||
       f->nlev < 0 || f->nlev > viem::kMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VIEM_LAUNCH(FORM) \
-  viem::launch<FORM>(eu, ev, ew, E, perm, n, B, D, *f, scratch, nb, out, s)
+  viem::launch<FORM>(eu, ev, ew, E, perm, n, B, shared != 0, D, *f, \
+                     scratch, nb, out, s)
   switch (form) {
     case viem::kTree: VIEM_LAUNCH(viem::kTree); break;
     case viem::kTorus: VIEM_LAUNCH(viem::kTorus); break;

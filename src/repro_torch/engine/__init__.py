@@ -7,7 +7,9 @@ conflict resolution and the objective live in device tensors, and only
 one value per sweep (each lane's best gain) and one flag per matching
 round come back to the host.  The loop runs over a lane axis: a batch
 of graphs (``RefinementEngine.refine_batch``, a single ``refine`` being
-a batch of one) shares every sweep's kernel launches and readbacks.
+a batch of one), or restart lanes of one graph whose graph and pair
+tensors every lane shares (``refine_lanes``, the portfolio's), shares
+every sweep's kernel launches and readbacks.
 One sweep is:
 
   1. **Gains** — the sparse O(deg) gain of every candidate pair at once

@@ -1,11 +1,12 @@
 """The eager sweep loop and its session wrapper (see package docstring).
 
 ``_make_refine`` builds the sweep function — a loop from initial
-permutations to converged permutations over a lane axis of graphs — for
-one distance form; :class:`RefinementEngine` wraps it with host glue:
-DeviceGraph/pair uploads (cached per graph structure) padded to the
-batch's common shapes, eps selection, and :class:`SearchStats` reporting
-against host float64 objectives.
+permutations to converged permutations over a lane axis of graphs, or of
+permutations of one shared graph — for one distance form;
+:class:`RefinementEngine` wraps it with host glue: DeviceGraph/pair
+uploads (cached per graph structure) padded to the batch's common shapes,
+eps selection, and :class:`SearchStats` reporting against host float64
+objectives.
 """
 
 from __future__ import annotations
@@ -34,7 +35,10 @@ def _make_refine(kind: str, params: tuple, max_sweeps: int, config=None):
     Signature: ``(nbr, wgt, eu, ev, ew, us, vs, perm0, D, eps, tenure,
     dlb, collect, boundary) -> (perm, trace, sweeps, swaps, tel)``.
     ``nbr``/``wgt`` are (B, n, K), ``eu``/``ev``/``ew`` (B, E),
-    ``us``/``vs`` (B, P) and ``perm0`` (B, n) tensors on one device;
+    ``us``/``vs`` (B, P) and ``perm0`` (B, n) tensors on one device — or,
+    for B permutations of one graph (``refine_lanes``), the graph and
+    pair tensors without the lane axis ((n, K), (E,), (P,)), read by
+    every lane and never copied (K1 and K2 take them so);
     ``D`` is shared; ``eps`` is a sequence of B host floats;
     ``tenure``/``dlb``/``collect`` are host values; ``boundary`` is the
     :class:`~repro_torch.runtime.Boundary` every deliberate readback
@@ -81,11 +85,12 @@ def _make_refine(kind: str, params: tuple, max_sweeps: int, config=None):
                   dlb, collect, boundary):
         dev = perm0.device
         b_, n = perm0.shape
-        p = us.shape[1]
+        p = us.shape[-1]
         lanes = torch.arange(b_, device=dev)
         base = (lanes * n)[:, None]
         us_l, vs_l = us.long(), vs.long()
-        us_f, vs_f = us_l + base, vs_l + base       # disjoint-union ids
+        # disjoint-union ids (B, P); shared pairs broadcast to the lanes
+        us_f, vs_f = us_l + base, vs_l + base
         idx = torch.arange(p, device=dev)
         oob = torch.full((b_, p), b_ * n, dtype=torch.long, device=dev)
         tabu_on = int(tenure) > 0
@@ -512,9 +517,7 @@ class RefinementEngine:
             j0s = [qap_objective(g, self.topology, p)
                    for g, p in zip(graphs, perms)]
         if not any(len(p) for p in pairs_list):
-            self.last_syncs = {"sweeps": 0, "passes": 0,
-                               "lane_sweeps": [0] * len(graphs), "reads": 0,
-                               "observed": None}
+            self._no_loop(len(graphs))
             return [self._unmoved(j0, telemetry) for j0 in j0s]
         p_raw = max(max((len(p) for p in pairs_list), default=1), 1)
         if bucket is not None:
@@ -530,24 +533,79 @@ class RefinementEngine:
                    else dg.pad_to(k_max, e_max) for dg in dgs]
         dev_pairs = [self._device_pairs(p, pad_to=p_max)
                      for p in pairs_list]
-        perm0 = torch.from_numpy(np.stack(
-            [np.asarray(p, dtype=np.int32) for p in perms])).to(self.device)
 
         def stack(tensors):
             return tensors[0][None] if len(tensors) == 1 \
                 else torch.stack(tensors)
 
+        return self._sweep(
+            graphs, perms, [len(p) for p in pairs_list], j0s,
+            (stack([dg.nbr for dg in dgs]), stack([dg.wgt for dg in dgs]),
+             stack([dg.eu for dg in dgs]), stack([dg.ev for dg in dgs]),
+             stack([dg.ew for dg in dgs]),
+             stack([u for u, _ in dev_pairs]),
+             stack([v for _, v in dev_pairs])),
+            tabu_tenure, dlb, telemetry)
+
+    def refine_lanes(self, g: CommGraph, perms, pairs: np.ndarray,
+                     j0s=None, bucket=None, tabu_tenure: int = 0,
+                     dlb: bool = False,
+                     telemetry: bool = False) -> list[SearchStats]:
+        """Refine L restart *lanes* of ONE graph in one sweep loop — the
+        portfolio's counterpart of :meth:`refine_batch`: the graph and
+        candidate-pair tensors are uploaded once and passed without a
+        lane axis, so K1 and K2 read them for every lane and no lane
+        copy is made (the JAX package's ``in_axes=None``); only the
+        permutations and eps thresholds carry a lane axis.  Each lane's
+        result equals a single :meth:`refine` of that lane's
+        permutation, and ``self.last_syncs`` counts the loop's reads as
+        :meth:`refine_batch` does.  Each ``perm`` is refined in place.
+        With no candidate pair nothing moves: each lane reports its j0
+        (without telemetry, as the JAX package's ``refine_lanes``)."""
+        perms = list(perms)
+        if not perms:
+            return []
+        if j0s is None:
+            j0s = [qap_objective(g, self.topology, p) for p in perms]
+        if len(pairs) == 0:
+            self._no_loop(len(perms))
+            return [self._unmoved(j0, False) for j0 in j0s]
+        dg, us, vs = self.shared_inputs(g, pairs, bucket)
+        return self._sweep([g] * len(perms), perms, [len(pairs)] * len(perms),
+                           j0s, (dg.nbr, dg.wgt, dg.eu, dg.ev, dg.ew, us, vs),
+                           tabu_tenure, dlb, telemetry)
+
+    def shared_inputs(self, g: CommGraph, pairs: np.ndarray,
+                      bucket=None) -> tuple:
+        """The cached device graph and pair tensors of one graph, padded
+        as a single :meth:`refine` pads them (into ``bucket`` when one is
+        given): ``(DeviceGraph, us, vs)``."""
+        if bucket is not None:
+            dg = self._device_graph(g, k=bucket.max_deg, e=bucket.num_edges)
+            p_max = self._bucket_p(bucket, max(len(pairs), 1))
+        else:
+            dg = self._device_graph(g)
+            p_max = -(-max(len(pairs), 1) // 128) * 128
+        return (dg, *self._device_pairs(pairs, pad_to=p_max))
+
+    def _no_loop(self, lanes: int) -> None:
+        self.last_syncs = {"sweeps": 0, "passes": 0,
+                           "lane_sweeps": [0] * lanes, "reads": 0,
+                           "observed": None}
+
+    def _sweep(self, graphs, perms, n_pairs, j0s, tensors, tabu_tenure,
+               dlb, telemetry) -> list[SearchStats]:
+        """Run the sweep loop over ``tensors`` (nbr, wgt, eu, ev, ew, us,
+        vs: stacked lanes or one shared graph) from ``perms``, write the
+        results into ``perms`` and report each lane's stats against its
+        graph; the loop's syncs go to ``self.last_syncs``."""
+        import torch
+        perm0 = torch.from_numpy(np.stack(
+            [np.asarray(p, dtype=np.int32) for p in perms])).to(self.device)
         with host_boundary("engine.sweeps", self.device) as hb:
             out_perm, trace, sweeps, swaps, tel = self._refine(
-                stack([dg.nbr for dg in dgs]),
-                stack([dg.wgt for dg in dgs]),
-                stack([dg.eu for dg in dgs]),
-                stack([dg.ev for dg in dgs]),
-                stack([dg.ew for dg in dgs]),
-                stack([u for u, _ in dev_pairs]),
-                stack([v for _, v in dev_pairs]),
-                perm0, self._D, [self._eps(j) for j in j0s], tabu_tenure,
-                dlb, telemetry, hb)
+                *tensors, perm0, self._D, [self._eps(j) for j in j0s],
+                tabu_tenure, dlb, telemetry, hb)
         with host_boundary("engine.readback"):
             perm_h = out_perm.cpu().numpy()
             trace_h = trace.cpu().numpy()
@@ -564,7 +622,7 @@ class RefinementEngine:
             perm[:] = perm_h[i].astype(perm.dtype)
             out.append(self._stats(
                 g, perm, j0s[i], trace_h[i], int(sweeps[i]),
-                int(swaps_h[i]), len(pairs_list[i]),
+                int(swaps_h[i]), n_pairs[i],
                 telemetry={k: v[i] for k, v in tel_h.items()}
                 if telemetry else None))
         return out

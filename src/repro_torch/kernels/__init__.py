@@ -3,7 +3,8 @@
   qap_objective — K1: the edge-list QAP objective (``csrc/qap_objective
                   .cu``), replacing the JAX package's three Pallas
                   reductions in ``kernels/qap_objective.py``; a lane axis
-                  takes a batch's B objectives in one launch
+                  takes a batch's B objectives in one launch, or those of
+                  B permutations of one shared graph (the portfolio's)
   pair_gain     — K2: sparse per-pair swap gains (``csrc/pair_gain.cu``),
                   replacing ``pair_gains_pallas``, with the same lane
                   axis; also the engine's ``edge_objective``

@@ -29,10 +29,14 @@ padding pairs (u, u) give exactly 0.
     in-loop objective: the K1 kernel on CUDA tensors, the plain
     (optionally chunked) sum on CPU tensors.
 
-Each takes a lane axis (a leading B on every per-graph tensor; D is
-shared): B instances in one launch on CUDA, lane by lane in the plain
-versions, each lane equal to the single call on its arrays.  It is the
-batched sweep's counterpart of ``jax.vmap`` over the Pallas call.
+Each takes a lane axis in two layouts, with D shared: a leading B on
+every per-graph tensor (a batch of graphs), or a leading B on the
+permutation alone, the graph and pair tensors shared by every lane (the
+portfolio's restart lanes of one graph; they are read by every lane,
+never copied).  B instances in one launch on CUDA, lane by lane in the
+plain versions, each lane equal to the single call on its arrays.  It is
+the sweep's counterpart of ``jax.vmap`` over the Pallas call, with
+``in_axes=None`` for the shared tensors.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import ctypes
 from .config import KernelConfig
 from .cuda import CudaKernel
 from .qap_objective import (check_cuda, distance_form, form_params,
-                            on_device, qap_objective_edges)
+                            lane_of, on_device, qap_objective_edges)
 
 __all__ = ["PAIR_GAIN_KERNEL", "distance_form", "edge_objective",
            "pair_gains", "pair_gains_plain"]
@@ -52,7 +56,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 PAIR_GAIN_KERNEL = CudaKernel(
     "pair_gains", "pair_gain", "viem_pair_gains",
     [_P, _P, _I, _I,            # nbr, wgt, K, n
-     _P, _P, _P, _I, _I,        # perm, us, vs, P, lanes
+     _P, _P, _P, _I, _I, _I,    # perm, us, vs, P, lanes, shared graph
      _P, _I,                    # D, form
      _P, _I,                    # FormParams, its size
      _P,                        # out
@@ -68,14 +72,15 @@ def edge_objective(kind: str, params: tuple, eu, ev, ew, perm, D,
     when one edge tile covers the list) this is the flat sum; with a
     smaller tile it sums (block_rows · lanes)-element chunks in order,
     accumulating in ``config.acc_dtype``, as the JAX package does.  With
-    a lane axis ((B, E) edges, (B, n) perm) the (B,) objectives."""
+    a lane axis ((B, n) perm; (B, E) edges, or (E,) edges shared by the
+    lanes) the (B,) objectives."""
     if eu.is_cuda:
         return qap_objective_edges(kind, params, eu, ev, ew, perm, D)
     import torch
-    if eu.dim() == 2:
-        return torch.stack([edge_objective(kind, params, eu[b], ev[b], ew[b],
-                                           perm[b], D, config=config)
-                            for b in range(eu.shape[0])])
+    if perm.dim() == 2:
+        return torch.stack([edge_objective(
+            kind, params, *lane_of(b, eu.dim() == 1, eu, ev, ew), perm[b],
+            D, config=config) for b in range(perm.shape[0])])
     d = distance_form(kind, params)
     e = eu.shape[0]
     chunk = config.block_rows * config.lanes if config is not None else None
@@ -103,14 +108,16 @@ def pair_gains_plain(kind: str, params: tuple, nbr, wgt, perm, us, vs, D,
                      config: KernelConfig | None = None):
     """Exact swap gains for P candidate pairs in plain PyTorch (float32):
     per side, Σ over the K slots of w · (d(π_a, t) − d(π_b, t)), then
-    the two sides added.  With a lane axis (nbr/wgt (B, n, K), perm
-    (B, n), us/vs (B, P)) the (B, P) gains, lane by lane."""
+    the two sides added.  With a lane axis (perm (B, n); nbr/wgt
+    (B, n, K) and us/vs (B, P), or nbr/wgt (n, K) and us/vs (P,) shared
+    by the lanes) the (B, P) gains, lane by lane."""
     import torch
-    if us.dim() == 2:
-        return torch.stack([pair_gains_plain(kind, params, nbr[b], wgt[b],
-                                             perm[b], us[b], vs[b], D,
-                                             config=config)
-                            for b in range(us.shape[0])])
+    if perm.dim() == 2:
+        shared = us.dim() == 1
+        return torch.stack([pair_gains_plain(
+            kind, params, *lane_of(b, shared, nbr, wgt), perm[b],
+            *lane_of(b, shared, us, vs), D, config=config)
+            for b in range(perm.shape[0])])
     d = distance_form(kind, params)
     perm_l = perm.long()
 
@@ -145,20 +152,23 @@ def pair_gains(kind: str, params: tuple, nbr, wgt, perm, us, vs, D,
     the K2 kernel for CUDA tensors, :func:`pair_gains_plain` for CPU
     tensors.  ``nbr``/``wgt`` (n, K) int32/float32, ``perm`` (n,) int32,
     ``us``/``vs`` (P,) int32, ``D`` the matrix table or a dummy.  With a
-    lane axis — nbr/wgt (B, n, K), perm (B, n), us/vs (B, P) — the
-    (B, P) gains of B instances under one D, in one launch."""
+    lane axis — perm (B, n), and nbr/wgt (B, n, K) with us/vs (B, P), or
+    nbr/wgt (n, K) with us/vs (P,) shared by the lanes — the (B, P) gains
+    of B instances under one D, in one launch."""
     if not us.is_cuda:
         return pair_gains_plain(kind, params, nbr, wgt, perm, us, vs, D,
                                 config=config)
     import torch
     check_cuda("pair_gains", us.device, nbr=nbr, wgt=wgt, perm=perm, us=us,
                vs=vs, D=D)
-    lanes = us.shape[:-1]
+    lanes = perm.shape[:-1]
+    shared = us.dim() == 1 and perm.dim() == 2
+    graph_lanes = () if shared else lanes
     n, k = nbr.shape[-2:]
     p = int(us.shape[-1])
-    if us.dim() not in (1, 2) or wgt.shape != nbr.shape or \
-            nbr.shape[:-2] != lanes or vs.shape != us.shape or \
-            perm.shape != (*lanes, n):
+    if perm.dim() not in (1, 2) or wgt.shape != nbr.shape or \
+            nbr.shape[:-2] != graph_lanes or vs.shape != us.shape or \
+            us.shape[:-1] != graph_lanes or perm.shape[-1] != n:
         raise ValueError("pair_gains: inconsistent shapes nbr "
                          f"{tuple(nbr.shape)}, wgt {tuple(wgt.shape)}, "
                          f"perm {tuple(perm.shape)}, us {tuple(us.shape)}, "
@@ -166,13 +176,13 @@ def pair_gains(kind: str, params: tuple, nbr, wgt, perm, us, vs, D,
     if k % 4 or nbr.data_ptr() % 16 or wgt.data_ptr() % 16:
         nbr, wgt = _rows_by_fours(nbr, wgt)
     form, f = form_params(kind, params, D)
-    out = torch.empty(us.shape, dtype=torch.float32, device=us.device)
+    out = torch.empty((*lanes, p), dtype=torch.float32, device=us.device)
     with on_device(us.device):
         stream = torch.cuda.current_stream(us.device).cuda_stream
         PAIR_GAIN_KERNEL.launch(
             nbr.data_ptr(), wgt.data_ptr(), int(nbr.shape[-1]), int(n),
             perm.data_ptr(), us.data_ptr(), vs.data_ptr(), p,
-            int(lanes[0]) if lanes else 1, D.data_ptr(), form,
+            int(lanes[0]) if lanes else 1, int(shared), D.data_ptr(), form,
             ctypes.addressof(f), ctypes.sizeof(f), out.data_ptr(), stream)
     return out
 

@@ -17,9 +17,12 @@ fuses the Π gather their wrapper did), on CPU tensors it runs the plain
 PyTorch version :func:`qap_objective_plain`.  Both take the padded edge
 tensors (eu, ev, ew) and the permutation; padding edges (0, 0, w = 0)
 are inert.  Both also take a lane axis: (B, E) edge tensors and a
-(B, n) permutation give the B objectives (B,) of a batch, in one launch
-on CUDA, each lane's bits those of a single call on its arrays (the
-counterpart of ``jax.vmap`` over the Pallas call).  The kernel takes a
+(B, n) permutation give the B objectives (B,) of a batch, and (E,) edge
+tensors with a (B, n) permutation those of B permutations of one graph
+(the portfolio's lanes; the edge list is read by every lane, never
+copied), in one launch on CUDA, each lane's bits those of a single call
+on its arrays (the counterpart of ``jax.vmap`` over the Pallas call,
+with ``in_axes=None`` for a shared edge list).  The kernel takes a
 call in one launch, and its distance
 form as one :class:`FormParams` struct, built once per form and cached
 (:func:`form_params`), with a fixed-point reciprocal (:func:`reciprocal`)
@@ -37,8 +40,8 @@ import numpy as np
 from .cuda import CudaKernel
 
 __all__ = ["OBJECTIVE_KERNEL", "FormParams", "distance_form",
-           "form_params", "qap_objective_edges", "qap_objective_plain",
-           "reciprocal"]
+           "form_params", "lane_of", "qap_objective_edges",
+           "qap_objective_plain", "reciprocal"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -66,7 +69,7 @@ class FormParams(ctypes.Structure):
 OBJECTIVE_KERNEL = CudaKernel(
     "qap_objective", "qap_objective", "viem_qap_objective",
     [_P, _P, _P, _I,            # eu, ev, ew, E
-     _P, _I, _I,                # perm, n, lanes
+     _P, _I, _I, _I,            # perm, n, lanes, shared edge list
      _P, _I,                    # D, form
      _P, _I,                    # FormParams, its size
      _P, _I, _P,                # scratch, nb, out
@@ -133,16 +136,23 @@ def distance_form(kind: str, params: tuple):
 def qap_objective_plain(kind: str, params: tuple, eu, ev, ew, perm, D):
     """Σ w_e · D(perm[eu_e], perm[ev_e]) as one float32 sum — the
     kernel's plain PyTorch twin (0-d float32 tensor); with a lane axis
-    ((B, E) edges, (B, n) perm) the (B,) sums of the lanes, each the
-    single call on its lane."""
+    ((B, n) perm, and (B, E) edges or one (E,) edge list shared by the
+    lanes) the (B,) sums of the lanes, each the single call on its
+    lane."""
     import torch
-    if eu.dim() == 2:
-        return torch.stack([qap_objective_plain(kind, params, eu[b], ev[b],
-                                                ew[b], perm[b], D)
-                            for b in range(eu.shape[0])])
+    if perm.dim() == 2:
+        return torch.stack([qap_objective_plain(
+            kind, params, *lane_of(b, eu.dim() == 1, eu, ev, ew), perm[b],
+            D) for b in range(perm.shape[0])])
     d = distance_form(kind, params)
     perm_l = perm.long()
     return torch.sum(ew * d(perm_l[eu.long()], perm_l[ev.long()], D))
+
+
+def lane_of(b: int, shared: bool, *tensors) -> list:
+    """Lane ``b``'s per-graph tensors: the tensors themselves when the
+    lanes share one graph, else their ``b``-th slices."""
+    return list(tensors) if shared else [t[b] for t in tensors]
 
 
 # ------------------------------------------------------------------ kernel
@@ -265,15 +275,18 @@ def qap_objective_edges(kind: str, params: tuple, eu, ev, ew, perm, D):
     the inputs' device: the CUDA kernel (one launch) for CUDA tensors,
     the plain version for CPU tensors.  eu, ev, perm int32; ew float32;
     D the matrix table (float32/int8/int16) or a dummy for tree/torus.
-    With a lane axis — eu, ev, ew (B, E), perm (B, n) — the (B,)
-    objectives of the lanes, still one launch."""
+    With a lane axis — perm (B, n), and eu, ev, ew (B, E) or one (E,)
+    edge list shared by the lanes — the (B,) objectives of the lanes,
+    still one launch."""
     if not eu.is_cuda:
         return qap_objective_plain(kind, params, eu, ev, ew, perm, D)
     import torch
     dev = eu.device
     check_cuda("qap_objective", dev, eu=eu, ev=ev, ew=ew, perm=perm, D=D)
-    lanes = eu.shape[:-1]
-    if eu.dim() not in (1, 2) or perm.shape[:-1] != lanes or \
+    lanes = perm.shape[:-1]
+    shared = eu.dim() == 1 and perm.dim() == 2
+    if perm.dim() not in (1, 2) or \
+            eu.shape[:-1] != (() if shared else lanes) or \
             ev.shape != eu.shape or ew.shape != eu.shape:
         raise ValueError(f"qap_objective: eu, ev, ew must share one shape "
                          f"(E,) or (B, E) and perm be (n,) or (B, n); got "
@@ -288,7 +301,8 @@ def qap_objective_edges(kind: str, params: tuple, eu, ev, ew, perm, D):
         stream = torch.cuda.current_stream(dev).cuda_stream
         OBJECTIVE_KERNEL.launch(
             eu.data_ptr(), ev.data_ptr(), ew.data_ptr(), e,
-            perm.data_ptr(), n, b, D.data_ptr(), form, ctypes.addressof(f),
+            perm.data_ptr(), n, b, int(shared), D.data_ptr(), form,
+            ctypes.addressof(f),
             ctypes.sizeof(f), _scratch(dev, stream, b).data_ptr(), nb,
             out.data_ptr(), stream)
     return out

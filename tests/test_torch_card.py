@@ -751,3 +751,88 @@ def test_multilevel_map_makes_no_uncounted_sync(cuda):
     for eng in plan.engines:
         assert eng.last_syncs["reads"] > 0
         assert eng.last_syncs["observed"] == eng.last_syncs["reads"]
+
+
+# ------------------------------------------------- shared graph, portfolio
+@pytest.mark.parametrize("real", [False, True], ids=["integer", "real"])
+@pytest.mark.parametrize("graph", [0, 1], ids=["stencil", "geometric"])
+@pytest.mark.parametrize("name", ["tree", "torus", "f32real", "int8"])
+def test_shared_graph_kernels_equal_stacked_and_singles(cuda, name, graph,
+                                                        real):
+    """K1 and K2 over one graph shared by 4 lanes (the portfolio's
+    restart lanes), one launch each: every lane bit-equal to the same
+    graph stacked once a lane and to a single launch on that lane's
+    permutation, on real weights too."""
+    kind, params, D, _ = _form(name, cuda)
+    g = _lane_graphs(real)[graph]
+    dg = tc.DeviceGraph.from_comm(g, device=cuda)
+    us, vs = tc.device_pairs(communication_pairs(g, 3), device=cuda)
+    b = 4
+    rng = np.random.default_rng(11)
+    perms = torch.from_numpy(np.stack([rng.permutation(N) for _ in range(b)])
+                             .astype(np.int32)).to(cuda)
+
+    def lanes(x):
+        return x[None].expand(b, *x.shape).contiguous()
+
+    k1, k2 = OBJECTIVE_KERNEL.launches, PAIR_GAIN_KERNEL.launches
+    gains = pair_gains(kind, params, dg.nbr, dg.wgt, perms, us, vs, D)
+    objs = qap_objective_edges(kind, params, dg.eu, dg.ev, dg.ew, perms, D)
+    assert PAIR_GAIN_KERNEL.launches == k2 + 1
+    assert OBJECTIVE_KERNEL.launches == k1 + 1
+    assert gains.shape == (b, us.shape[0]) and objs.shape == (b,)
+    assert torch.equal(gains, pair_gains(kind, params, lanes(dg.nbr),
+                                         lanes(dg.wgt), perms, lanes(us),
+                                         lanes(vs), D))
+    assert torch.equal(objs, qap_objective_edges(
+        kind, params, lanes(dg.eu), lanes(dg.ev), lanes(dg.ew), perms, D))
+    for i in range(b):
+        assert torch.equal(gains[i], pair_gains(kind, params, dg.nbr,
+                                                dg.wgt, perms[i], us, vs, D))
+        assert torch.equal(objs[i], qap_objective_edges(
+            kind, params, dg.eu, dg.ev, dg.ew, perms[i], D))
+
+
+def _portfolio_spec(multilevel):
+    from repro_torch.core import MultilevelSpec
+    from repro_torch.core.spec import PortfolioSpec
+    return tc.MappingSpec(
+        construction="random", neighborhood_dist=2,
+        preconfiguration="fast", engine="device", backend="pallas", seed=1,
+        multilevel=MultilevelSpec(levels=2, coarsen_min=8)
+        if multilevel else None,
+        portfolio=PortfolioSpec(lanes=4, rounds=4, tabu_tenure=4,
+                                kick_strength=0.2, stagnation=2))
+
+
+@pytest.mark.parametrize("multilevel", [False, True])
+def test_portfolio_map_on_card_equals_cpu(cuda, multilevel):
+    """A portfolio map at n = 64 on the card equals the CPU port's
+    exactly (integer data; the kick draws come from numpy on the host,
+    so both draw the same), and every sync of the card's round loop,
+    lane refinements and upload is a counted read."""
+    machine = tc.Hierarchy((4, 4, 4), (1.0, 10.0, 100.0))
+    g = tc.random_geometric(64, 0.25, seed=3)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        plan = tc.Mapper(machine, _portfolio_spec(multilevel),
+                         device=dev).lower_for(g)
+        k1, k2 = OBJECTIVE_KERNEL.launches, PAIR_GAIN_KERNEL.launches
+        res = plan.execute(g)
+        runs[dev] = (res, plan, OBJECTIVE_KERNEL.launches - k1,
+                     PAIR_GAIN_KERNEL.launches - k2)
+    (a, _, k1c, k2c), (b, plan, k1g, k2g) = runs["cpu"], runs["cuda"]
+    assert k1c == k2c == 0 and k1g > 0 and k2g > 0
+    assert np.array_equal(a.perm, b.perm)
+    assert a.initial_objective == b.initial_objective
+    assert a.final_objective == b.final_objective
+    assert a.search_stats.objective_trace == b.search_stats.objective_trace
+    assert a.search_stats.swaps == b.search_stats.swaps
+    assert a.search_stats.evaluated == b.search_stats.evaluated
+    runner = plan.portfolio
+    assert len(runner.last_rounds) > 0
+    assert runner.last_syncs["upload"] == 0
+    assert runner.last_syncs["reads"] > 0
+    assert runner.last_syncs["observed"] == runner.last_syncs["reads"]
+    for eng in plan.engines:
+        assert eng.last_syncs["observed"] == eng.last_syncs["reads"]

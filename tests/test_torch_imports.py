@@ -38,5 +38,6 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.configs.base", "repro_torch.configs.granite_3_8b",
             "repro_torch.models.layers", "repro_torch.models.attention",
             "repro_torch.models.transformer", "repro_torch.train.steps",
-            "repro_torch.launch.serve"} <= set(report["names"])
+            "repro_torch.launch.serve", "repro_torch.portfolio.kicks",
+            "repro_torch.portfolio.search"} <= set(report["names"])
     assert report["leaked"] == [], f"repro_torch pulled in {report}"

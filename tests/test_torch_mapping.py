@@ -6,10 +6,11 @@ and backend ``"pallas"`` (the objective kernel's plain version here) or
 objective and search statistics *exactly* on all five topologies
 (integer weights and distances: every float32 sum is exact).  Also:
 spec and plan-spec dict round trips, plan save/load, the ``viem`` CLI's
-permutation file, and the unported pipelines raising (the host engine
+permutation file, and the unported CLI paths exiting (the host engine
 is ported: ``tests/test_torch_search.py``; the multilevel V-cycle:
 ``tests/test_torch_multilevel.py``; batches and warm starts:
-``tests/test_torch_batch.py``).
+``tests/test_torch_batch.py``; the portfolio search:
+``tests/test_torch_portfolio.py``).
 """
 
 import functools
@@ -175,11 +176,13 @@ def test_cli_writes_the_reference_permutation(tmp_path, capsys):
     assert (tmp_path / "ref").read_text() == (tmp_path / "port").read_text()
 
 
-# ``--multilevel`` (flags0) is ported: its parity test is
-# tests/test_torch_multilevel.py::test_cli_multilevel_writes_the_reference
-# _permutation.  The ids keep the remaining cases' names.
+# ``--multilevel`` (flags0) and ``--portfolio`` (flags1) are ported:
+# their parity tests are tests/test_torch_multilevel.py::
+# test_cli_multilevel_writes_the_reference_permutation and
+# tests/test_torch_portfolio.py::
+# test_cli_portfolio_writes_the_reference_permutation.  The ids keep the
+# remaining cases' names.
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--portfolio"], "item 3", id="flags1"),
     pytest.param(["--metrics-out=m.json"], "item 10", id="flags2"),
     pytest.param(["--profile=t.json"], "item 10", id="flags3")])
 def test_cli_unported_flags_exit(tmp_path, flags, item):
@@ -204,20 +207,11 @@ def test_cli_unported_commands_name_their_item(command, item):
     assert item in str(exc.value.code)
 
 
-# ------------------------------------------------------ unported pipelines
-# The two multilevel cases (block0, block2) are ported: their parity
+# ------------------------------------------------------ ported pipelines
+# Every pipeline a spec selects is ported: the multilevel blocks' parity
 # tests are tests/test_torch_multilevel.py::
-# test_multilevel_specs_equal_reference.  The id keeps the name.
-@pytest.mark.parametrize("block,item", [
-    pytest.param({"portfolio": {"lanes": 2}}, "item 3", id="block1-item 3"),
-])
-def test_unported_pipelines_raise(block, item):
-    d = dict(_spec("pallas").to_dict(), **block)
-    spec = convert.spec(d)
-    mapper = tc.Mapper(_machine(tt, tc, "tree"), spec, device="cpu")
-    _, g_port = _graphs()
-    with pytest.raises(NotImplementedError, match=item):
-        mapper.map(g_port)
+# test_multilevel_specs_equal_reference, the portfolio block's
+# tests/test_torch_portfolio.py::test_portfolio_map_equals_reference.
 
 
 def test_flat_escape_hatches_are_allowed():
