@@ -93,7 +93,36 @@ one JSON line after each, failing loudly on the first fault:
               the CPU warm refinement from the same incumbent, the
               incumbent unchanged, P unchanged, the inactive region
               frozen.
-11. gain    — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
+11. remap   — the closed loop (``repro_torch.monitor.RemapMonitor``) on
+              the main cell: a ``pow2`` plan with the main map's spec,
+              the main map's incumbent (no second construction), the
+              candidate pairs built once and held fixed; 10 windows
+              (REMAP): 4 quiet (±1 % jitter), then ×8 on the edges of a
+              seeded 12.5 % of the vertices, and before window 8's tick a
+              StragglerMonitor (4 hosts, patience 2) attached to the loop
+              flags host 1, so a REBALANCE goes through the replay gate.
+              Launch counts set to 0 just before the ticks and read just
+              after.  Checks: the quiet windows trigger nothing; every
+              warm remap launches K1 and K2, refines the fixed pair
+              array (P unchanged), makes no sync but counted reads, and
+              moves no vertex outside its active pairs; every committed
+              incumbent is a bijection whose K1 objective is the host
+              float64 one within REMAP's objective_rtol; the device-graph
+              cache stays within its cap.  One line per tick: decision,
+              drift score, dirty vertices, active pairs, remap seconds on
+              the card, K1/K2 launches, reads and observed syncs, K1
+              calls, predicted against actual (host float64)
+              improvement.
+12. remap:bench — ``benchmarks/bench_remap.py``'s full workload
+              (BENCH_REMAP: ``grid3d(8, 8, 4)`` on the torus (16, 16),
+              its three episodes) through the port on the card and on
+              the CPU: decisions, dirty sets, active pairs and committed
+              permutations equal, scores within 1e-6 relative; its
+              acceptance (no quiet remap, recovery ≥ 0.8 of a scratch
+              remap, incremental time < 0.5× the scratch ``plan.execute``
+              on the card), printed beside BENCH_remap.json's CPU
+              figures of the JAX package.
+13. gain    — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
               the main map's graph, machine and final permutation, with
               the launch counts set to 0 just before and read just
               after: G must equal the plain version on the card, the
@@ -115,7 +144,7 @@ one JSON line after each, failing loudly on the first fault:
               largest of 5) with each result dropped and with the
               previous one held, with the page-locked blocks each call
               made, freed and reused, PyTorch's and the port's own.
-12. flash   — holds K4 (flash attention) against its plain version on
+14. flash   — holds K4 (flash attention) against its plain version on
               the card at the serve shape (B 4, T 2048, H 32, KV 8, hd
               128, bf16) and at starcoder2-7b's windowed shape (B 1, T
               8192, H 36, KV 4, hd 128, window 4096, bf16), and on small
@@ -126,7 +155,7 @@ one JSON line after each, failing loudly on the first fault:
               K4, its plain version and ``scaled_dot_product_attention``
               (the yardstick; the port never calls it) beside the bound,
               at both shapes in bf16 and at the serve shape in float32.
-13. serve   — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
+15. serve   — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
               at the full published config (40 layers, random weights)
               with the launch counts set to 0 just before and read just
               after: K4's bf16 route must launch once per layer of the
@@ -152,11 +181,13 @@ and K2's ms is the device time per launch, and they add
 ``map_many``, ``batch_ms``, the device time of one launch of 4
 lanes, ``portfolio_launches``, their launches in the portfolio map, and
 ``shared_ms``, the device time of one launch of 8 lanes over one
-graph); the last is ``{"ok": true,
+graph, and ``remap_launches``, their launches in the remap phase's
+ticks); the last is ``{"ok": true,
 "device": {...}}``.  Without a card, or outside a checkout, it exits
 non-zero and prints no result.  ``--stop-after
-build|kernels|portfolio`` runs the phases up to that one (portfolio:
-through portfolio:cpu) and stops, with neither line.
+build|kernels|portfolio|remap`` runs the phases up to that one
+(portfolio: through portfolio:cpu; remap: through remap:bench) and
+stops, with neither line.
 """
 
 from __future__ import annotations
@@ -221,6 +252,29 @@ ML_REFERENCE_LEVELS = ((277680.0, 277680.0, 0), (298160.0, 298160.0, 0),
 # there); their lanes do move, so that comparison is not of unmoved
 # permutations
 BATCH_CPU_MAX_N = 1024
+# the remap cell: the closed loop on the main cell from the main map's
+# incumbent.  Windows 0..quiet-1 carry the base traffic with ±jitter
+# noise; from window `quiet` on, the edges touching a seeded shift_frac
+# of the vertices carry shift_factor× their weight (BENCH_remap.json's
+# shift_factor and shift_frac; viem remap-watch's synthesis); before window
+# straggler_window's tick a StragglerMonitor of `hosts` hosts (patience
+# 2) attached to the loop flags host 1, so a REBALANCE goes through the
+# gate.  alpha is bench_remap.py's EMA weight.  objective_rtol bounds K1's
+# float32 objective against the host float64 one relative to J: the
+# weights and products rounded to float32 (2⁻²⁴ each) and a blocked sum
+# of depth ~log2(E) + 2 stay below 1e-6 at E = 11,520.
+REMAP = {"windows": 10, "quiet": 4, "jitter": 0.01, "shift_factor": 8.0,
+         "shift_frac": 0.125, "straggler_window": 8, "hosts": 4,
+         "alpha": 0.7, "seed": 23, "objective_rtol": 1e-5}
+# the remap:bench cell: benchmarks/bench_remap.py's full workload (its
+# constants), the card held to the CPU within score_rtol on the scores,
+# and its CPU result in BENCH_remap.json (the JAX package on a CPU, not a
+# device number): objective recovery against a scratch remap, and the
+# incremental remap's time over the scratch remap's
+BENCH_REMAP = {"grid": (8, 8, 4), "torus": (16, 16), "jitter": 0.01,
+               "shift_factor": 8.0, "shift_frac": 0.125, "quiet": 4,
+               "hosts": 4, "score_rtol": 1e-6,
+               "reference": (2.883720930232558, 0.07727720424146999)}
 
 
 def emit(obj) -> None:
@@ -1475,6 +1529,416 @@ def phase_warm(topo, g, perm, pairs):
     return out
 
 
+# ------------------------------------------------------- phases remap
+def _remap_windows(g, rng, quiet, total, jitter, factor, hot):
+    """The observed traffic of ``total`` windows over ``g``: every window
+    jittered by ±``jitter``; from window ``quiet`` on, the edges touching
+    a ``hot`` vertex (a mask) carry ``factor``× their weight — ``viem
+    remap-watch``'s synthesized windows."""
+    import numpy as np
+
+    from repro_torch.core import from_edges
+    u, v, w = g.edge_list()
+    touched = hot[u] | hot[v]
+    wins = []
+    for t in range(total):
+        wt = w * rng.uniform(1 - jitter, 1 + jitter, len(w))
+        if t >= quiet:
+            wt = np.where(touched, wt * factor, wt)
+        wins.append(from_edges(g.n, u, v, wt))
+    return wins
+
+
+class _RemapProbe:
+    """Records what a monitor's warm remaps did: each ``execute_warm``
+    call's inputs and result, its seconds on the card (ending in a
+    synchronize), and (through :func:`instrument`) each engine call's
+    launches and syncs."""
+
+    def __init__(self, plan):
+        import numpy as np
+        import torch
+        self.warm = []
+        self.calls, self._undo = instrument(plan.engines)
+        self._plan, self._orig = plan, plan.execute_warm
+
+        def warm(live, perm, pairs=None, active=None, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = self._orig(live, perm, pairs=pairs, active=active, **kw)
+            torch.cuda.synchronize()
+            self.warm.append({"perm": np.array(perm),
+                              "pairs_len": len(pairs),
+                              "active": np.array(active), "res": res,
+                              "seconds": time.perf_counter() - t0})
+            return res
+
+        plan.execute_warm = warm
+
+    def undo(self):
+        self._undo()
+        self._plan.execute_warm = self._orig
+
+
+def _tick_row(r, n_pairs):
+    state = ("remapped" if r.remapped else r.skipped or
+             ("rejected" if r.verdict else
+              ("armed" if r.drift.armed else "disarmed")))
+    return {"window": r.window - 1, "decision": state,
+            "forced_by": r.forced_by, "score": r.drift.score,
+            "l1": r.drift.l1, "objective_delta": r.drift.objective_delta,
+            "triggered": r.triggered, "remapped": r.remapped,
+            "dirty": r.dirty, "active_pairs": r.active_pairs,
+            "pairs": n_pairs, "retraces": r.retraces,
+            "predicted_improvement": (None if r.verdict is None else
+                                      r.verdict.predicted_improvement)}
+
+
+def phase_remap(topo, g, perm):
+    """The closed loop at the main cell (REMAP's note) from the main
+    map's incumbent: one line per tick and a summary; checks every
+    statement of REMAP's note."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Mapper, MappingSpec, qap_objective
+    from repro_torch.monitor import MonitorConfig, RemapMonitor
+    from repro_torch.obs import get_tracer
+    from repro_torch.runtime.boundary import host_boundary
+    from repro_torch.runtime.fault_tolerance import StragglerMonitor
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(REMAP["seed"])
+    hot = np.zeros(g.n, bool)
+    hot[rng.permutation(g.n)[:int(REMAP["shift_frac"] * g.n)]] = True
+    windows = _remap_windows(g, rng, REMAP["quiet"], REMAP["windows"],
+                             REMAP["jitter"], REMAP["shift_factor"], hot)
+    plan = Mapper(topo, MappingSpec(engine="device", backend="pallas"),
+                  device=DEVICE).lower_for(g, schedule="pow2")
+    objective_calls = [0, 0.0]
+    orig_objective = plan.objective
+
+    def counted_objective(g_, p_):
+        # K1 with its upload and its one read (which waits for the card)
+        t = time.perf_counter()
+        out = orig_objective(g_, p_)
+        objective_calls[0] += 1
+        objective_calls[1] += time.perf_counter() - t
+        return out
+
+    # set before the monitor is built, so its detector and replay (which
+    # keep plan.objective) and the warm remaps all go through it
+    plan.objective = counted_objective
+    committed = []
+    t0 = time.perf_counter()
+    mon = RemapMonitor(plan, g, perm=perm, config=MonitorConfig(
+        min_weight=0.01, alpha=REMAP["alpha"]), seed=0,
+        on_remap=lambda p, v: committed.append(p.copy()))
+    setup_s = time.perf_counter() - t0
+    n_pairs = len(mon.pairs)
+    probe = _RemapProbe(plan)
+    # the loop's own spans split each tick: monitor.window (the
+    # profiler's fold), monitor.drift, monitor.remap, monitor.replay
+    tracer = get_tracer()
+    was_enabled = tracer.enabled
+    tracer.enable()
+    tracer.drain()
+    rows = []
+    reset_launches()
+    t_phase = time.perf_counter()
+    for t, win in enumerate(windows):
+        if t == REMAP["straggler_window"]:
+            sm = StragglerMonitor(n_hosts=REMAP["hosts"], patience=2)
+            mon.attach(sm)
+            for _ in range(3):
+                sm.record_step({h: (3.0 if h == 1 else 1.0)
+                                for h in range(REMAP["hosts"])})
+        before = read_launches()
+        n_warm, n_calls = len(probe.warm), len(probe.calls)
+        n_obj, obj_s = objective_calls
+        incumbent = mon.incumbent.copy()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with host_boundary("monitor.tick", dev) as hb:
+            mon.observe_graph(win)
+            r = mon.tick()
+        torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t1
+        after = read_launches()
+        row = _tick_row(r, n_pairs)
+        split = {}
+        for sp in tracer.drain():
+            if sp.name.startswith("monitor.") and sp.name != "monitor.tick":
+                split[sp.name] = split.get(sp.name, 0.0) + sp.dur
+        row.update(tick_seconds=tick_s, split_seconds=split,
+                   launches={k: after[k] - before[k] for k in MAP_KERNELS},
+                   objective_calls=objective_calls[0] - n_obj,
+                   objective_seconds=objective_calls[1] - obj_s,
+                   syncs_outside_engine=hb.syncs)
+        label = f"remap window {t}"
+        if t < REMAP["quiet"]:
+            check(not r.remapped and not r.triggered,
+                  f"{label}: a quiet window triggered a remap")
+        warm = probe.warm[n_warm:]
+        calls = probe.calls[n_calls:]
+        check(len(warm) == (1 if r.triggered and r.skipped is None else 0),
+              f"{label}: {len(warm)} warm remaps for one tick")
+        if warm:
+            w = warm[0]
+            remap_launches = {k: sum(c["launches"][k] for c in calls)
+                              for k in MAP_KERNELS}
+            check_launched(remap_launches, MAP_KERNELS, label)
+            check(w["pairs_len"] == n_pairs and
+                  all(len(c["pairs"][0]) == n_pairs for c in calls),
+                  f"{label}: the refined pair array is not of length P")
+            for c in calls:
+                check_counted(c["syncs"], label)
+            movable = np.zeros(g.n, bool)
+            movable[mon.pairs[w["active"]].ravel()] = True
+            check(np.array_equal(w["res"].perm[~movable],
+                                 w["perm"][~movable]),
+                  f"{label}: a vertex outside the active pairs moved")
+            check(np.array_equal(w["perm"], incumbent),
+                  f"{label}: the warm remap did not start at the incumbent")
+            live = mon.profiler.live()
+            j_inc = qap_objective(live, topo, incumbent)
+            j_cand = qap_objective(live, topo, w["res"].perm)
+            row.update(remap_seconds=w["seconds"],
+                       remap_launches=remap_launches,
+                       engine_reads=[c["syncs"]["reads"] for c in calls],
+                       engine_syncs_observed=[c["syncs"]["observed"]
+                                              for c in calls],
+                       sweeps=sum(c["syncs"]["sweeps"] for c in calls),
+                       moved=int(np.sum(w["res"].perm != w["perm"])),
+                       actual_improvement=1.0 - j_cand / j_inc)
+        if r.remapped:
+            # the committed incumbent: a bijection whose K1 objective is
+            # the host float64 one within float32 rounding
+            p = mon.incumbent
+            check(sorted(p.tolist()) == list(range(g.n)),
+                  f"{label}: the committed incumbent is not a bijection")
+            j32 = orig_objective(mon.baseline, p)
+            j64 = qap_objective(mon.baseline, topo, p)
+            check(abs(j32 - j64) <= REMAP["objective_rtol"] * j64,
+                  f"{label}: plan.objective {j32} against host {j64}")
+            row.update(committed_objective_k1=j32,
+                       committed_objective_host=j64)
+        rows.append(row)
+        emit(dict(phase="remap", **row))
+    phase_s = time.perf_counter() - t_phase
+    launches = read_launches()
+    if not was_enabled:
+        tracer.disable()
+    tracer.drain()
+    probe.undo()
+    plan.objective = orig_objective
+    check(len(committed) == mon.remaps,
+          f"remap: {len(committed)} commits reported, {mon.remaps} made")
+    live = mon.baseline
+    j32 = plan.objective(live, mon.incumbent)
+    j64 = qap_objective(live, topo, mon.incumbent)
+    check(abs(j32 - j64) <= REMAP["objective_rtol"] * j64,
+          f"remap: plan.objective {j32} against host {j64}")
+    info = plan.engines[0].cache_info()
+    check(info["graph_entries"] <= plan.engines[0]._caps["graphs"],
+          f"remap: the device-graph cache grew past its cap: {info}")
+    out = {"phase": "remap", "n": g.n, "pairs": n_pairs,
+           "windows": len(windows), "remaps": mon.remaps,
+           "triggered": sum(r["triggered"] for r in rows),
+           "quiet_remaps": sum(r["remapped"] for r in rows[:REMAP["quiet"]]),
+           "hot_vertices": int(hot.sum()),
+           "monitor_setup_seconds": setup_s, "ticks_seconds": phase_s,
+           "remap_seconds": [r.get("remap_seconds") for r in rows],
+           "remap_launches": {k: launches[k] for k in MAP_KERNELS},
+           "final_objective_k1": j32, "final_objective_host": j64,
+           "device_graph_cache": info, "checks_passed": True,
+           "phase_seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
+def _bench_remap_run(device, time_scratch):
+    """benchmarks/bench_remap.py's full workload through the port on
+    ``device``: its three episodes, decisions and timings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Mapper, MappingSpec, from_edges, grid3d
+    from repro_torch.monitor import MonitorConfig, RemapMonitor
+    from repro_torch.runtime.fault_tolerance import StragglerMonitor
+    from repro_torch.topology import make_topology
+    b = BENCH_REMAP
+    g = grid3d(*b["grid"])
+    topo = make_topology("torus", dims=list(b["torus"]))
+    spec = MappingSpec(construction="hierarchytopdown",
+                       neighborhood="communication", neighborhood_dist=10,
+                       engine="device", seed=0)
+    plan = Mapper(topo, spec, device=device).lower_for(g, schedule="pow2")
+    mon = RemapMonitor(plan, g, config=MonitorConfig(min_weight=0.01,
+                                                     alpha=0.7), seed=0)
+    incumbent0 = mon.incumbent.copy()
+    import repro_torch.monitor.loop as loop
+    dirty, masks = [], []
+    orig_mask = loop.dirty_pair_mask
+
+    def mask(pairs, d):
+        dirty.append(np.array(d))
+        out = orig_mask(pairs, d)
+        masks.append(np.array(out))
+        return out
+    loop.dirty_pair_mask = mask
+    try:
+        u, v, w = g.edge_list()
+        rng = np.random.default_rng(0)
+
+        def shift(base, verts):
+            bu, bv, bw = base.edge_list()
+            m = np.zeros(base.n, bool)
+            m[verts] = True
+            return from_edges(base.n, bu, bv, np.where(
+                m[bu] & m[bv], bw * b["shift_factor"], bw))
+
+        for _ in range(b["quiet"]):
+            mon.observe_graph(from_edges(g.n, u, v, w * rng.uniform(
+                1 - b["jitter"], 1 + b["jitter"], size=len(w))))
+            mon.tick()
+        quiet_remaps = mon.remaps
+        frac = b["shift_frac"]
+        true_shift = shift(g, np.arange(g.n // 8,
+                                        g.n // 8 + int(frac * g.n)))
+        shift_reports = []
+        for _ in range(5):
+            mon.observe_graph(true_shift)
+            shift_reports.append(mon.tick())
+        t_incr = sum(r.remap_seconds for r in shift_reports
+                     if r.triggered and not r.skipped)
+        j_old = plan.objective(true_shift, incumbent0)
+        j_incr = plan.objective(true_shift, mon.incumbent)
+        scratch = plan.execute(true_shift, seed=0)
+        t_scratch = None
+        if time_scratch:
+            ts = []
+            for _ in range(3):
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plan.execute(true_shift, seed=0)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            t_scratch = float(np.median(ts))
+        sm = StragglerMonitor(n_hosts=b["hosts"], patience=2)
+        mon.attach(sm)
+        for _ in range(3):
+            sm.record_step({h: (3.0 if h == 1 else 1.0)
+                            for h in range(b["hosts"])})
+        evict_verts = np.arange(3 * g.n // 4, 3 * g.n // 4 + int(frac * g.n))
+        pre_evict = mon.incumbent.copy()
+        evict_reports = []
+        for _ in range(3):
+            mon.observe_graph(shift(mon.baseline, evict_verts))
+            r = mon.tick()
+            evict_reports.append(r)
+            if r.remapped:
+                break
+    finally:
+        loop.dirty_pair_mask = orig_mask
+    return {"rows": [_tick_row(r, len(mon.pairs)) for r in mon.history],
+            "reports": list(mon.history), "dirty": dirty, "masks": masks,
+            "incumbent": mon.incumbent.copy(), "incumbent0": incumbent0,
+            "remaps": mon.remaps, "quiet_remaps": quiet_remaps,
+            "j_old": j_old, "j_incr": j_incr,
+            "j_scratch": scratch.final_objective, "t_incr": t_incr,
+            "t_scratch": t_scratch,
+            "evict_forced": next((r.forced_by for r in evict_reports
+                                  if r.forced_by), None),
+            "evict_committed": any(r.remapped for r in evict_reports),
+            "j_evict": (plan.objective(mon.baseline, pre_evict),
+                        plan.objective(mon.baseline, mon.incumbent)),
+            "pairs": len(mon.pairs), "commits": [
+                r for r in shift_reports if r.remapped]}
+
+
+def _rel_close(a, b, rel):
+    return abs(a - b) <= rel * max(abs(a), abs(b))
+
+
+def phase_remap_bench():
+    """benchmarks/bench_remap.py's full workload on the card and on the
+    CPU (BENCH_REMAP's note)."""
+    import numpy as np
+
+    t_start = time.perf_counter()
+    reset_launches()
+    card = _bench_remap_run(DEVICE, time_scratch=True)
+    launches = read_launches()
+    check_launched(launches, MAP_KERNELS, "remap:bench")
+    t0 = time.perf_counter()
+    cpu = _bench_remap_run("cpu", time_scratch=False)
+    cpu_s = time.perf_counter() - t0
+    rel = BENCH_REMAP["score_rtol"]
+    check(len(card["rows"]) == len(cpu["rows"]),
+          "remap:bench: card and CPU ran different numbers of windows")
+    for a, c in zip(card["rows"], cpu["rows"]):
+        for key in ("decision", "forced_by", "triggered", "remapped",
+                    "dirty", "active_pairs", "pairs"):
+            check(a[key] == c[key], f"remap:bench window {a['window']}: "
+                                    f"card {key} {a[key]} != CPU {c[key]}")
+        for key in ("score", "l1", "objective_delta",
+                    "predicted_improvement"):
+            if a[key] is None or c[key] is None:
+                check(a[key] is c[key], f"remap:bench: {key} missing")
+                continue
+            check(_rel_close(a[key], c[key], rel),
+                  f"remap:bench window {a['window']}: card {key} "
+                  f"{a[key]} against CPU {c[key]}")
+    check(len(card["dirty"]) == len(cpu["dirty"]) and all(
+        np.array_equal(x, y) for x, y in zip(card["dirty"], cpu["dirty"]))
+        and all(np.array_equal(x, y)
+                for x, y in zip(card["masks"], cpu["masks"])),
+        "remap:bench: card and CPU dirty sets or active pairs differ")
+    check(np.array_equal(card["incumbent0"], cpu["incumbent0"]) and
+          np.array_equal(card["incumbent"], cpu["incumbent"]),
+          "remap:bench: card and CPU committed permutations differ")
+    for key in ("j_old", "j_incr", "j_scratch"):
+        check(_rel_close(card[key], cpu[key], rel),
+              f"remap:bench: card {key} {card[key]} against CPU {cpu[key]}")
+    gap = max(card["j_old"] - card["j_scratch"], 1e-12)
+    recovery = (card["j_old"] - card["j_incr"]) / gap
+    ratio = card["t_incr"] / max(card["t_scratch"], 1e-12)
+    check(card["quiet_remaps"] == 0, "remap:bench: a quiet window remapped")
+    check(card["commits"], "remap:bench: the shift committed no remap")
+    check(recovery >= 0.8, f"remap:bench: recovery {recovery} < 0.8 of the "
+                           f"scratch remap's")
+    check(ratio < 0.5, f"remap:bench: incremental time {ratio} of the "
+                       f"scratch remap's, not < 0.5")
+    first = card["commits"][0]
+    out = {"phase": "remap:bench", "n": BENCH_REMAP["grid"][0] *
+           BENCH_REMAP["grid"][1] * BENCH_REMAP["grid"][2],
+           "pairs": card["pairs"], "windows": card["rows"],
+           "quiet_remaps": card["quiet_remaps"], "remaps": card["remaps"],
+           "trigger_window": first.window,
+           "dirty_vertices": first.dirty, "active_pairs": first.active_pairs,
+           "objective_incumbent": card["j_old"],
+           "objective_incremental": card["j_incr"],
+           "objective_scratch": card["j_scratch"],
+           "objective_recovery": recovery,
+           "objective_recovery_reference": BENCH_REMAP["reference"][0],
+           "incremental_seconds": card["t_incr"],
+           "scratch_seconds": card["t_scratch"], "time_ratio": ratio,
+           "time_ratio_reference": BENCH_REMAP["reference"][1],
+           "predicted_improvement": first.verdict.predicted_improvement,
+           "actual_improvement": 1.0 - card["j_incr"] / card["j_old"],
+           "evict_forced_by": card["evict_forced"],
+           "evict_committed": card["evict_committed"],
+           "evict_objective": card["j_evict"],
+           "launches": {k: launches[k] for k in MAP_KERNELS},
+           "cpu_seconds": cpu_s, "equals_cpu": True,
+           "phase_seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
 # ------------------------------------------------------------ phase 9
 def _host_s(fn):
     """(result, seconds) of ``fn()`` ending in a device synchronize."""
@@ -2088,7 +2552,7 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one CUDA card (see the module notes).")
     ap.add_argument("--stop-after", choices=("build", "kernels",
-                                             "portfolio"),
+                                             "portfolio", "remap"),
                     help="run the phases up to this one and stop, with "
                          "no kernels line and no result line")
     args = ap.parse_args(argv)
@@ -2127,6 +2591,10 @@ def main(argv) -> int:
     phase_multilevel(main_topo, main_g, main_run["jf"])
     batch_ml, _ = phase_batch(main_topo)
     phase_warm(main_topo, main_g, main_perm, main_pairs)
+    remap = phase_remap(main_topo, main_g, main_perm)
+    phase_remap_bench()
+    if args.stop_after == "remap":
+        return 0
     k3, gain_launches = phase_gain(main_topo, main_g, main_perm, main_pairs,
                                    forms)
     k4, k4_worst = phase_flash()
@@ -2167,7 +2635,8 @@ def main(argv) -> int:
                 batch_launches=batch_ml["batch_launches"][name],
                 batch_ms=rec["batch_ms"],
                 portfolio_launches=pf["launches"][name],
-                shared_ms=rec["shared_ms"])
+                shared_ms=rec["shared_ms"],
+                remap_launches=remap["remap_launches"][name])
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,11 @@ objective and the sparse pair gains, each with a lane axis that covers
 a batch in one launch), the dense gain matrix
 (``Mapper.gain_matrix``) through a third, and the host search drivers
 (``engine="host"``, the default) and the ``viem``/``evaluator`` CLIs on
-top.  The LM substrate's serving path
+top.  The closed remapping loop (:mod:`repro_torch.monitor`, ``viem
+remap-watch``) runs its incremental remaps through the first two; the
+HLO-text analysis it reads (:mod:`repro_torch.analysis`) and the
+metrics and trace exporters it writes (:mod:`repro_torch.obs`) are host
+code.  The LM substrate's serving path
 (:func:`repro_torch.launch.serve.serve`: prefill + greedy decode of the
 dense configs) runs its attention through a fourth kernel, flash
 attention.  Each kernel (:mod:`repro_torch.kernels`) has a plain PyTorch

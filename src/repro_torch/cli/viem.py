@@ -23,17 +23,20 @@ Usage:
         [--config=spec.json]              # load a MappingSpec (flags override)
         [--device=cuda|cpu]               # default cuda; never falls back
         [--explain] [--telemetry]
+        [--profile=trace.json]            # Chrome trace of the run's spans
+        [--metrics-out=metrics.prom]      # the run's metrics, Prometheus text
         [--output_filename=permutation]
+    python -m repro_torch.cli.viem remap-watch graph.metis ...  # closed loop
     python -m repro_torch.cli.viem --list-algorithms
 
 The flags are the JAX package's ``repro.cli.viem`` flags, and the
 defaults are its defaults (``engine="host"`` with the communication
 neighborhood; ``--multilevel`` selects the V-cycle over the device
 engine, its knobs following ``--preconfiguration_mapping``;
-``--portfolio`` the multistart search over the device engine).  Those of
-paths the port has not taken over yet — ``--profile``,
-``--metrics-out`` and the ``remap-watch``/``lint`` subcommands — exit
-with an error that names the ROADMAP item.
+``--portfolio`` the multistart search over the device engine;
+``remap-watch`` the closed remapping loop, :mod:`.remap_watch`).  The
+``lint`` subcommand, not ported yet, exits with an error that names its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -49,13 +52,9 @@ from ..core import Mapper, MappingSpec, list_constructions, \
 from .machine import add_topology_flags, machine_flags_given, \
     topology_from_args
 
-# flags accepted for compatibility with repro.cli.viem that select paths
-# the port does not have yet: flag -> (what, ROADMAP queue-1 item)
-_UNPORTED_FLAGS = {
-    "profile": ("--profile (Chrome trace export)", 10),
-    "metrics_out": ("--metrics-out (metrics registry)", 10),
-}
-_UNPORTED_COMMANDS = {"remap-watch": 10, "lint": 8}
+# subcommands of repro.cli.viem the port does not have yet: name ->
+# ROADMAP queue-1 item
+_UNPORTED_COMMANDS = {"lint": 8}
 
 
 def _print_algorithms():
@@ -154,18 +153,25 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--kernel_quantize", default=None,
                     choices=["auto", "off", "int8", "int16"])
     ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
-                    help="not ported yet (exits)")
+                    help="record the run's spans (with the engine's "
+                         "per-sweep counters) as a Chrome trace_event "
+                         "JSON for Perfetto")
     ap.add_argument("--telemetry", action="store_true",
                     help="collect the engine's per-sweep counters and "
                          "print a summary")
     ap.add_argument("--metrics-out", metavar="FILE", default=None,
-                    help="not ported yet (exits)")
+                    help="write the run's metrics as Prometheus text")
     ap.add_argument("--output_filename", default="permutation")
     return ap
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "remap-watch":
+        # the closed-loop monitor driver (repro_torch.monitor): profile →
+        # drift → what-if replay → incremental remap
+        from .remap_watch import main as remap_watch_main
+        return remap_watch_main(argv[1:])
     if argv and argv[0] in _UNPORTED_COMMANDS:
         sys.exit(f"viem: the {argv[0]!r} subcommand is not ported to "
                  f"repro_torch yet (ROADMAP.md queue 1, item "
@@ -179,10 +185,6 @@ def main(argv=None):
 
     if not args.file:
         ap.error("the graph file argument is required")
-    for dest, (what, item) in _UNPORTED_FLAGS.items():
-        if getattr(args, dest) is not None:
-            sys.exit(f"viem: {what} is not ported to repro_torch yet "
-                     f"(ROADMAP.md queue 1, item {item})")
 
     try:
         spec = build_spec(args)
@@ -204,7 +206,13 @@ def main(argv=None):
             import json
             print(json.dumps(mapper.lower_for(g).describe(), indent=2))
             return
-        res = mapper.map(g, telemetry=args.telemetry)
+        tracer = None
+        if args.profile:
+            from ..obs import get_tracer
+            tracer = get_tracer()
+            tracer.enable()
+        telemetry = args.telemetry or bool(args.profile)
+        res = mapper.map(g, telemetry=telemetry)
     except (NotImplementedError, RuntimeError) as exc:
         sys.exit(f"viem: {exc}")
     np.savetxt(args.output_filename, res.perm, fmt="%d")
@@ -216,7 +224,7 @@ def main(argv=None):
     print(f"construction time    = {res.construction_seconds:.3f}s")
     print(f"local search time    = {res.search_seconds:.3f}s")
     tel = None if res.search_stats is None else res.search_stats.telemetry
-    if args.telemetry and tel is not None:
+    if telemetry and tel is not None:
         s = tel.summary()
         print(f"engine sweeps        = {s['sweeps']} "
               f"(passes {s['passes']})")
@@ -225,7 +233,37 @@ def main(argv=None):
         print(f"aspiration fires     = {s['aspiration_fires']} "
               f"(rate {s['aspiration_rate']:.3f}/pass)")
         print(f"downhill escapes     = {s['downhill_escapes']}")
+    if tracer is not None:
+        from ..obs import write_chrome_trace
+        n_events = write_chrome_trace(tracer.spans(), args.profile)
+        print(f"wrote {args.profile} ({len(tracer)} spans, "
+              f"{n_events} trace events)")
+    if args.metrics_out:
+        _write_metrics(args.metrics_out, res, tel)
     print(f"wrote {args.output_filename}")
+
+
+def _write_metrics(path, res, tel) -> None:
+    """The run's objectives, phase seconds and engine counters as
+    Prometheus text (the names of ``repro.cli.viem --metrics-out``)."""
+    from ..obs import MetricsRegistry
+    reg = MetricsRegistry()
+    with reg.lock:
+        reg.counter("run.count").inc()
+        reg.gauge("run.initial_objective").set(res.initial_objective)
+        reg.gauge("run.final_objective").set(res.final_objective)
+        reg.gauge("run.improvement").set(res.improvement)
+        reg.histogram("run.construction_seconds").observe(
+            res.construction_seconds)
+        reg.histogram("run.search_seconds").observe(res.search_seconds)
+        if tel is not None:
+            s = tel.summary()
+            reg.counter("engine.sweeps").inc(s["sweeps"])
+            reg.counter("engine.exchanges").inc(s["exchanges"])
+            reg.counter("engine.tabu_masked").inc(s["tabu_masked"])
+    with open(path, "w") as fh:
+        fh.write(reg.to_prometheus())
+    print(f"wrote {path}")
 
 
 if __name__ == "__main__":

@@ -26,7 +26,8 @@ construct the same permutations and candidate pairs):
   construction — registered constructions
   local_search — SearchStats, the registered neighborhoods and the host
                  search drivers
-  comm_model   — per-level traffic of a mapping
+  comm_model   — traffic graphs from HLO text, the guide's generate_model,
+                 per-level traffic of a mapping
 """
 
 from .construction import list_constructions, register_construction

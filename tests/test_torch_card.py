@@ -836,3 +836,56 @@ def test_portfolio_map_on_card_equals_cpu(cuda, multilevel):
     assert runner.last_syncs["observed"] == runner.last_syncs["reads"]
     for eng in plan.engines:
         assert eng.last_syncs["observed"] == eng.last_syncs["reads"]
+
+
+def test_remap_monitor_on_card_equals_cpu(cuda):
+    """The closed loop at n = 64 (torus 8×8, ``grid3d(4, 4, 4)``, integer
+    weights) on the card equals the same loop on the CPU tick for tick:
+    quiet windows, a ×8 shift of a seeded quarter of the vertices, and a
+    REBALANCE through the gate.  ``backend="pallas"``: the drift score
+    and the replay price with K1, every warm remap runs K1 and K2, and
+    every sync of a warm remap is a counted read."""
+    import dataclasses
+
+    from repro_torch.monitor import MonitorConfig, RemapMonitor
+    from repro_torch.runtime.fault_tolerance import Action
+    from repro_torch.topology import make_topology
+    g = tc.grid3d(4, 4, 4)
+    u, v, w = g.edge_list()
+    hot = np.zeros(g.n, bool)
+    hot[np.random.default_rng(0).permutation(g.n)[:16]] = True
+    shifted = tc.from_edges(g.n, u, v, np.where(hot[u] | hot[v], w * 8, w))
+    windows = [g, g, shifted, shifted, shifted, shifted]
+    spec = tc.MappingSpec(construction="hierarchytopdown",
+                          neighborhood="communication", neighborhood_dist=10,
+                          engine="device", backend="pallas", seed=0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        plan = tc.Mapper(make_topology("torus", dims=[8, 8]), spec,
+                         device=dev).lower_for(g, schedule="pow2")
+        mon = RemapMonitor(plan, g, config=MonitorConfig(
+            drift_patience=2, min_weight=0.01), seed=0)
+        rows, launches = [], []
+        for t, win in enumerate(windows):
+            if t == 5:
+                mon.handle_action(Action.REBALANCE, [1], pes_per_host=16)
+            k1, k2 = OBJECTIVE_KERNEL.launches, PAIR_GAIN_KERNEL.launches
+            mon.observe_graph(win)
+            r = mon.tick()
+            launches.append((OBJECTIVE_KERNEL.launches - k1,
+                             PAIR_GAIN_KERNEL.launches - k2))
+            row = dataclasses.asdict(r)
+            del row["remap_seconds"]
+            rows.append(row)
+            if r.triggered and dev == "cuda":
+                syncs = plan.engines[0].last_syncs
+                assert syncs["observed"] == syncs["reads"]
+        runs[dev] = (rows, mon.incumbent.copy(), mon.remaps, launches)
+    (rc_, ic, nc, lc), (rg, ig, ng, lg) = runs["cpu"], runs["cuda"]
+    assert rg == rc_
+    assert np.array_equal(ig, ic)
+    assert ng == nc >= 1
+    assert all(k == (0, 0) for k in lc)
+    for row, (k1, k2) in zip(rg, lg):
+        assert k1 > 0                       # the drift score is K1's
+        assert (k2 > 0) == (row["triggered"] and row["skipped"] is None)

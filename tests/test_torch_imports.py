@@ -39,5 +39,10 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.models.layers", "repro_torch.models.attention",
             "repro_torch.models.transformer", "repro_torch.train.steps",
             "repro_torch.launch.serve", "repro_torch.portfolio.kicks",
-            "repro_torch.portfolio.search"} <= set(report["names"])
+            "repro_torch.portfolio.search",
+            "repro_torch.analysis.hlo", "repro_torch.analysis.roofline",
+            "repro_torch.obs.metrics", "repro_torch.obs.export",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.monitor.loop", "repro_torch.cli.remap_watch",
+            "repro_torch.launch.mesh"} <= set(report["names"])
     assert report["leaked"] == [], f"repro_torch pulled in {report}"
