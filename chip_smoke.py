@@ -122,7 +122,45 @@ one JSON line after each, failing loudly on the first fault:
               remap, incremental time < 0.5× the scratch ``plan.execute``
               on the card), printed beside BENCH_remap.json's CPU
               figures of the JAX package.
-13. gain    — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
+13. service — ``MappingService(Mapper(main machine, bench_port_serve's
+              spec with backend="pallas"), **placement_service_config())``
+              (pow2 buckets, max_batch 4, max_wait 5 ms): the batch
+              cells' four n = 4096 graphs warmed once each on copies with
+              weights ×1.5, then one timed burst — the four twice each,
+              an n = 1024 graph (a size mismatch) and the first again as
+              a "strong" request (``PortfolioSpec()``, 8 lanes over the
+              shared graph) — with the launch counts set to 0 just before
+              and read just after.  Checks one result per ticket, the
+              mismatch a ValueError and the only error, every other
+              result equal to the same Mapper's single ``map`` once the
+              worker stopped (permutation equal, jf within 1e-6
+              relative; the largest difference printed), a tick through
+              ``execute_batch`` with K2 launched at 4 lanes, hits plus
+              deduped = the 4 repeats, every sync of the worker's sweep
+              and round loops a counted read, no tensor in a result,
+              every served jf within 1e-5 relative of the host float64
+              objective.  The plain versions at the service's shapes:
+              the same burst through a ``MappingService`` on a
+              ``device="cpu"`` Mapper (a batch tick of the same pow2
+              lanes, the strong request's 8 lanes) must give the same
+              permutations.  Prints the burst's requests per second
+              and p50/p99 (gate readings of a 10-request burst, not the
+              service's throughput or tail), the ticks, K1/K2 launches
+              and the strong request's seconds (its ``plan.execute``
+              span).
+14. service:bench — ``benchmarks/bench_port_serve.py``'s full workload
+              (``bench_serve``'s: ``tpu_v5e_fleet(pods=1)``, n = 256, 6
+              structures × 8 repeats) on the card: no request fails,
+              hits plus deduped = 42, the plan buckets
+              BENCH_serve.json's; its payload and throughput speedup
+              beside BENCH_serve.json's 4.94 (a CPU run of the JAX
+              package).
+15. placement — ``placement_service()`` started in this process: its
+              Mapper resolves to the card and its engine is
+              ``placement_spec()``'s host engine (no kernel runs there;
+              ``--placement-smoke``'s lines are held to the JAX
+              package's by the CPU tests).
+16. gain    — ``Mapper(..., backend="pallas").gain_matrix(g, perm)`` on
               the main map's graph, machine and final permutation, with
               the launch counts set to 0 just before and read just
               after: G must equal the plain version on the card, the
@@ -144,7 +182,7 @@ one JSON line after each, failing loudly on the first fault:
               largest of 5) with each result dropped and with the
               previous one held, with the page-locked blocks each call
               made, freed and reused, PyTorch's and the port's own.
-14. flash   — holds K4 (flash attention) against its plain version on
+17. flash   — holds K4 (flash attention) against its plain version on
               the card at the serve shape (B 4, T 2048, H 32, KV 8, hd
               128, bf16) and at starcoder2-7b's windowed shape (B 1, T
               8192, H 36, KV 4, hd 128, window 4096, bf16), and on small
@@ -155,7 +193,7 @@ one JSON line after each, failing loudly on the first fault:
               K4, its plain version and ``scaled_dot_product_attention``
               (the yardstick; the port never calls it) beside the bound,
               at both shapes in bf16 and at the serve shape in float32.
-15. serve   — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
+18. serve   — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
               at the full published config (40 layers, random weights)
               with the launch counts set to 0 just before and read just
               after: K4's bf16 route must launch once per layer of the
@@ -181,17 +219,20 @@ and K2's ms is the device time per launch, and they add
 ``map_many``, ``batch_ms``, the device time of one launch of 4
 lanes, ``portfolio_launches``, their launches in the portfolio map, and
 ``shared_ms``, the device time of one launch of 8 lanes over one
-graph, and ``remap_launches``, their launches in the remap phase's
-ticks); the last is ``{"ok": true,
+graph, ``remap_launches``, their launches in the remap phase's
+ticks, and ``service_launches``, their launches in the service phase's
+timed burst); before it a line with the whole run's seconds and one
+with the card's name and power limit; the last is ``{"ok": true,
 "device": {...}}``.  Without a card, or outside a checkout, it exits
 non-zero and prints no result.  ``--stop-after
-build|kernels|portfolio|remap`` runs the phases up to that one
-(portfolio: through portfolio:cpu; remap: through remap:bench) and
-stops, with neither line.
+build|kernels|portfolio|remap|service`` runs the phases up to that one
+(portfolio: through portfolio:cpu; remap: through remap:bench; service:
+through placement) and stops, with neither line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -275,6 +316,24 @@ BENCH_REMAP = {"grid": (8, 8, 4), "torus": (16, 16), "jitter": 0.01,
                "shift_factor": 8.0, "shift_frac": 0.125, "quiet": 4,
                "hosts": 4, "score_rtol": 1e-6,
                "reference": (2.883720930232558, 0.07727720424146999)}
+
+# the service cell: bench_port_serve's spec with the main cell's backend on
+# the main machine, placement_service_config(); warm-up copies carry the
+# weights ×warm_scale (bench_serve's single warm-up), a served result is
+# held to the same Mapper's single map within rtol on jf (the permutation
+# equal) and to the host float64 objective within objective_rtol (REMAP's
+# float32 bound: the burst's graphs have E near 11,520), the same burst
+# through a CPU service (max_wait_s cpu_max_wait_s, so the whole burst is
+# queued before its first tick closes) gives the same permutations, and no
+# wait on a result exceeds timeout seconds
+SERVICE = {"warm_scale": 1.5, "rtol": 1e-6, "objective_rtol": 1e-5,
+           "cpu_max_wait_s": 1.0, "timeout": 600}
+# the service:bench cell: bench_serve's full workload, its repeats (6
+# structures × 8 − 6) and its plan buckets, and BENCH_serve.json's
+# throughput speedup (the JAX package on a CPU, not a device number)
+BENCH_SERVE = {"repeats": 42, "speedup": 4.935614573322663,
+               "buckets": ["K16:E1024:Pdyn", "K32:E2048:Pdyn",
+                           "K8:E512:Pdyn"]}
 
 
 def emit(obj) -> None:
@@ -1939,6 +1998,306 @@ def phase_remap_bench():
     return out
 
 
+# ----------------------------------------------------- phases service
+def _bench_serve():
+    """``benchmarks/bench_port_serve.py``, the port's serving benchmark."""
+    bench = str(ROOT / "benchmarks")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import bench_port_serve
+    return bench_port_serve
+
+
+def service_spec():
+    """``bench_port_serve._spec()`` (``bench_serve``'s: random
+    construction, the communication neighborhood at d = 2, fast, the
+    device engine, seed 0) with the main cell's backend."""
+    return _bench_serve()._spec().replace(backend="pallas")
+
+
+@contextlib.contextmanager
+def _sweep_loops():
+    """While entered, each engine sweep loop (``RefinementEngine._sweep``)
+    from every thread, the service's worker among them: its lanes, n and
+    syncs, appended to the yielded list."""
+    from repro_torch.engine.sweep import RefinementEngine
+    loops = []
+    orig = RefinementEngine._sweep
+
+    def sweep(eng, graphs, perms, *a, **kw):
+        out = orig(eng, graphs, perms, *a, **kw)
+        loops.append({"lanes": len(perms), "n": graphs[0].n,
+                      "syncs": dict(eng.last_syncs)})
+        return out
+
+    RefinementEngine._sweep = sweep
+    try:
+        yield loops
+    finally:
+        RefinementEngine._sweep = orig
+
+
+def _burst(svc, burst, timeout):
+    """Submit every (graph, quality) of ``burst`` to ``svc`` at once, then
+    wait for the answers: (tickets, {ticket: result}, {ticket: seconds
+    from the first submission to its answer}, the burst's seconds)."""
+    t0 = time.perf_counter()
+    tickets = [svc.submit(g, quality=q) for g, q in burst]
+    got, done = {}, {}
+    while len(got) < len(tickets):
+        t, res = svc.results.get(timeout=timeout)
+        check(t not in got, f"service: ticket {t} answered twice")
+        got[t] = res
+        done[t] = time.perf_counter() - t0
+    return tickets, got, done, time.perf_counter() - t0
+
+
+def phase_service(topo):
+    """``MappingService(Mapper(main machine, service_spec()),
+    **placement_service_config())`` on the card: the batch cells' four
+    graphs warmed once each on copies with weights ×1.5, then one timed
+    burst — the four twice each, an n = 1024 graph (a size mismatch) and
+    the first again as a "strong" request — with the launch counts set
+    to 0 just before and read just after.  Checks one result per ticket;
+    the mismatch a ValueError and the only error; a tick through
+    ``execute_batch`` with K2 launched at ``max_batch`` lanes; hits plus
+    deduped = the burst's repeats; every sync of every sweep and round
+    loop a counted read; no tensor in a result; every served jf within
+    SERVICE's objective_rtol of the host float64 objective.  Then, once
+    the service has closed, each result is held to the same Mapper's
+    single ``map`` on the card (the strong one with ``PortfolioSpec()``
+    and the device engine: the permutation equal, jf within SERVICE's
+    rtol) and to the plain versions at the service's own shapes: the
+    same burst through a ``MappingService`` on a ``device="cpu"`` Mapper
+    (its batch tick the same ``pow2`` lanes), the permutations equal."""
+    import numpy as np
+
+    from repro_torch.core import CommGraph, Mapper, grid3d, qap_objective
+    from repro_torch.core.spec import PortfolioSpec
+    from repro_torch.launch.serve import MappingService
+    from repro_torch.launch.specs import placement_service_config
+    from repro_torch.obs import get_tracer
+    from repro_torch.testing import pair_gain_lanes, tensors_in
+    t_start = time.perf_counter()
+    side = SIZE["side"]
+    spec = service_spec()
+    graphs = batch_graphs(side, side, BATCH["radius"], BATCH["seed"])
+    warm = [CommGraph(g.xadj.copy(), g.adjncy.copy(),
+                      g.adjwgt * SERVICE["warm_scale"], g.vwgt.copy())
+            for g in graphs]
+    mismatch = grid3d(side, side, side // 4)
+    burst = ([(g, None) for g in graphs + graphs]
+             + [(mismatch, None), (graphs[0], "strong")])
+    cfg = placement_service_config()
+    mapper = Mapper(topo, spec, device=DEVICE)
+    tracer = get_tracer()
+    svc = MappingService(mapper, **cfg)
+    try:
+        t0 = time.perf_counter()
+        for g in warm:
+            svc.map(g, timeout=SERVICE["timeout"])
+        warm_s = time.perf_counter() - t0
+        svc.reset_stats()
+        tracer.clear()
+        tracer.enable()
+        with _sweep_loops() as sweeps, pair_gain_lanes() as k2_lanes:
+            reset_launches()
+            tickets, got, done, wall = _burst(svc, burst,
+                                              SERVICE["timeout"])
+            launches = read_launches()
+        spans = tracer.drain()
+        stats = svc.stats()
+    finally:
+        tracer.disable()
+        svc.close()
+    check(sorted(got) == sorted(tickets), "service: not one result per "
+                                          "ticket")
+    mm_t, strong_t = tickets[-2], tickets[-1]
+    check(isinstance(got[mm_t], ValueError),
+          f"service: the size mismatch gave {got[mm_t]!r}")
+    check(stats["errors"] == 1, f"service: {stats['errors']} errors")
+    for t in tickets:
+        check(t == mm_t or not isinstance(got[t], Exception),
+              f"service: ticket {t} failed: {got[t]!r}")
+        check(tensors_in(got[t]) == 0,
+              f"service: ticket {t}'s result holds a tensor")
+    check(stats["batches"] >= 1, "service: no tick took execute_batch")
+    check(cfg["max_batch"] in k2_lanes,
+          f"service: K2 never launched with {cfg['max_batch']} lanes "
+          f"(lanes seen {sorted(set(k2_lanes))})")
+    repeats = len(graphs)
+    check(stats["result_cache_hits"] + stats["in_tick_deduped"] == repeats,
+          f"service: hits {stats['result_cache_hits']} + deduped "
+          f"{stats['in_tick_deduped']} != {repeats} repeats")
+    check_launched(launches, MAP_KERNELS, "service")
+    for sw in sweeps:
+        check_counted(sw["syncs"], f"service sweep loop of {sw['lanes']} "
+                                   f"lanes")
+    # the strong request: its one round loop and the plan.execute around it
+    rounds = [sp for sp in spans if sp.name == "portfolio.rounds"]
+    check(len(rounds) == 1, f"service: {len(rounds)} round loops for the "
+                            f"one strong request")
+    rsp = rounds[0]
+    strong = [sp for sp in spans if sp.name == "plan.execute"
+              and sp.tid == rsp.tid and sp.t0 <= rsp.t0
+              and rsp.t0 + rsp.dur <= sp.t0 + sp.dur]
+    check(len(strong) == 1, "service: no plan.execute span holds the "
+                            "strong request's rounds")
+    round_syncs = rsp.attrs["syncs"]
+    check_counted(round_syncs, "service portfolio rounds")
+    check(round_syncs["upload"] == 0, "service: the portfolio upload synced")
+    # the singles, on the main thread once the worker has stopped
+    strong_spec = spec.replace(portfolio=PortfolioSpec(), engine="device")
+    worst, worst_host, singles_s, rows = 0.0, 0.0, [], []
+    singles = {}
+    for t, (g, q) in zip(tickets, burst):
+        if t == mm_t:
+            continue
+        sp = strong_spec if q == "strong" else None
+        key = (id(g), q)
+        if key not in singles:
+            t1 = time.perf_counter()
+            singles[key] = mapper.map(g, spec=sp)
+            singles_s.append(time.perf_counter() - t1)
+        one, res = singles[key], got[t]
+        check(np.array_equal(res.perm, one.perm),
+              f"service: ticket {t}'s permutation differs from its single "
+              f"map")
+        rel = abs(res.final_objective - one.final_objective) / max(
+            abs(one.final_objective), 1e-30)
+        worst = max(worst, rel)
+        host_jf = qap_objective(g, topo, res.perm)
+        rel_host = abs(res.final_objective - host_jf) / max(abs(host_jf),
+                                                            1e-30)
+        worst_host = max(worst_host, rel_host)
+        check(rel_host <= SERVICE["objective_rtol"],
+              f"service: ticket {t}'s jf {res.final_objective} is "
+              f"{rel_host} relative from the host objective {host_jf}")
+        rows.append({"ticket": t, "n": g.n, "quality": q or "default",
+                     "jf": res.final_objective,
+                     "single_jf": one.final_objective, "host_jf": host_jf,
+                     "latency_s": done[t]})
+    check(worst <= SERVICE["rtol"], f"service: jf {worst} relative from "
+                                    f"the singles'")
+    # the plain versions at the service's shapes: the burst again on the CPU
+    cpu_cfg = dict(cfg, max_wait_s=SERVICE["cpu_max_wait_s"])
+    with MappingService(Mapper(topo, spec, device="cpu"), **cpu_cfg) as cpu:
+        cpu_tickets, cpu_got, _, cpu_s = _burst(cpu, burst,
+                                                SERVICE["timeout"])
+        cpu_stats = cpu.stats()
+    check(cpu_stats["batches"] >= 1 and cpu_stats["errors"] == 1,
+          f"service: the CPU burst ran {cpu_stats['batches']} batches "
+          f"with {cpu_stats['errors']} errors")
+    cpu_worst = 0.0
+    for t, ct, (g, _) in zip(tickets, cpu_tickets, burst):
+        res, ref = got[t], cpu_got[ct]
+        if t == mm_t:
+            check(isinstance(ref, ValueError),
+                  f"service: the CPU's size mismatch gave {ref!r}")
+            continue
+        check(not isinstance(ref, Exception),
+              f"service: the CPU's ticket {ct} failed: {ref!r}")
+        check(np.array_equal(res.perm, ref.perm),
+              f"service: ticket {t}'s permutation differs from the "
+              f"CPU service's")
+        host_jf = qap_objective(g, topo, ref.perm)
+        rel = abs(ref.final_objective - host_jf) / max(abs(host_jf), 1e-30)
+        cpu_worst = max(cpu_worst, rel)
+        check(rel <= SERVICE["objective_rtol"],
+              f"service: the CPU's ticket {ct} jf {ref.final_objective} "
+              f"is {rel} relative from the host objective {host_jf}")
+    ticks = [{"requests": sp.attrs.get("batch"), "seconds": sp.dur}
+             for sp in spans if sp.name == "service.tick"]
+    batches = [{"lanes": sp.attrs.get("batch"), "seconds": sp.dur}
+               for sp in spans if sp.name == "plan.execute_batch"]
+    out = {"phase": "service", "n": graphs[0].n, "spec": spec.to_dict(),
+           "service_config": cfg, "requests": len(tickets),
+           "warm_seconds": warm_s, "burst_seconds": wall,
+           "burst_requests_per_s": len(tickets) / wall,
+           "latency_p50_s": stats["latency_p50_s"],
+           "latency_p99_s": stats["latency_p99_s"], "ticks": ticks,
+           "execute_batch": batches,
+           "k2_lanes": {str(k): k2_lanes.count(k)
+                        for k in sorted(set(k2_lanes))},
+           "launches": {k: launches[k] for k in MAP_KERNELS},
+           "strong_seconds": strong[0].dur,
+           "strong_latency_s": done[strong_t],
+           "stats": {k: stats[k] for k in (
+               "served", "batches", "batched_requests", "max_batch_seen",
+               "result_cache_hits", "in_tick_deduped", "errors",
+               "quality_served", "peak_queue_depth")},
+           "sweep_loops": [{"lanes": sw["lanes"], "n": sw["n"],
+                            "reads": sw["syncs"]["reads"],
+                            "syncs_observed": sw["syncs"]["observed"]}
+                           for sw in sweeps],
+           "rounds_reads": round_syncs["reads"],
+           "rounds_syncs_observed": round_syncs["observed"],
+           "results": rows, "max_rel_jf_vs_single": worst,
+           "max_rel_jf_vs_host": worst_host,
+           "single_seconds": singles_s, "equals_singles": True,
+           "cpu_burst_seconds": cpu_s,
+           "cpu_stats": {k: cpu_stats[k] for k in (
+               "batches", "batched_requests", "max_batch_seen",
+               "result_cache_hits", "in_tick_deduped", "errors")},
+           "cpu_max_rel_jf_vs_host": cpu_worst, "equals_cpu": True,
+           "phase_seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
+def phase_service_bench():
+    """``bench_port_serve.run`` with ``bench_serve``'s full workload on the
+    card (BENCH_SERVE's note)."""
+    t_start = time.perf_counter()
+    rows = []
+    payload = _bench_serve().run(
+        lambda name, us, detail: rows.append([name, us, detail]),
+        smoke=False, device=DEVICE)
+    svc = payload["service"]
+    check(svc["errors"] == 0, f"service:bench: {svc['errors']} requests "
+                              f"failed")
+    check(svc["result_cache_hits"] + svc["in_tick_deduped"]
+          == BENCH_SERVE["repeats"],
+          f"service:bench: hits {svc['result_cache_hits']} + deduped "
+          f"{svc['in_tick_deduped']} != {BENCH_SERVE['repeats']}")
+    check(svc["plan_buckets"] == BENCH_SERVE["buckets"],
+          f"service:bench: buckets {svc['plan_buckets']} != "
+          f"{BENCH_SERVE['buckets']}")
+    check_launched(payload["baseline"]["kernel_launches"], MAP_KERNELS,
+                   "service:bench baseline")
+    emit({"phase": "service:bench", "payload": payload, "report": rows,
+          "throughput_speedup": payload["headline"]["throughput_speedup"],
+          "throughput_speedup_reference_cpu_jax": BENCH_SERVE["speedup"],
+          "phase_seconds": time.perf_counter() - t_start})
+    return payload
+
+
+def phase_placement():
+    """``placement_service()`` as a fleet scheduler starts it, in this
+    process: its Mapper must resolve to the card, and it maps with
+    ``placement_spec()``'s host engine, so it launches no kernel; the
+    smoke's lines are held to the JAX package's on the CPU
+    (``tests/test_torch_serve.py``)."""
+    import torch
+
+    from repro_torch.launch.serve import placement_service
+    from repro_torch.launch.specs import placement_spec
+    t_start = time.perf_counter()
+    svc = placement_service()
+    try:
+        device, engine = svc.mapper.device, svc.mapper.spec.engine
+    finally:
+        svc.close()
+    check(torch.device(device).type == "cuda",
+          f"placement: placement_service() resolved to {device}")
+    check(engine == placement_spec().engine,
+          f"placement: engine {engine} is not placement_spec()'s")
+    out = {"phase": "placement", "device": str(device), "engine": engine,
+           "phase_seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
 # ------------------------------------------------------------ phase 9
 def _host_s(fn):
     """(result, seconds) of ``fn()`` ending in a device synchronize."""
@@ -2552,10 +2911,12 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one CUDA card (see the module notes).")
     ap.add_argument("--stop-after", choices=("build", "kernels",
-                                             "portfolio", "remap"),
+                                             "portfolio", "remap",
+                                             "service"),
                     help="run the phases up to this one and stop, with "
                          "no kernels line and no result line")
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
     preflight()
     import torch
     # full float32 products in the plain versions and the library call
@@ -2594,6 +2955,11 @@ def main(argv) -> int:
     remap = phase_remap(main_topo, main_g, main_perm)
     phase_remap_bench()
     if args.stop_after == "remap":
+        return 0
+    service = phase_service(main_topo)
+    phase_service_bench()
+    phase_placement()
+    if args.stop_after == "service":
         return 0
     k3, gain_launches = phase_gain(main_topo, main_g, main_perm, main_pairs,
                                    forms)
@@ -2636,7 +3002,9 @@ def main(argv) -> int:
                 batch_ms=rec["batch_ms"],
                 portfolio_launches=pf["launches"][name],
                 shared_ms=rec["shared_ms"],
-                remap_launches=remap["remap_launches"][name])
+                remap_launches=remap["remap_launches"][name],
+                service_launches=service["launches"][name])
+    emit({"phase": "total", "seconds": time.perf_counter() - t_run})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

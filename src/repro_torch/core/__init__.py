@@ -14,7 +14,8 @@ construct the same permutations and candidate pairs):
   spec         — MappingSpec/PlanSpec/ShapeBucket, the JAX package's dict
                  and JSON forms
   plan         — MappingPlan: the lowered artifact + execute hot path
-  mapping      — Mapper sessions (one LRU plan cache, one engine pool)
+  mapping      — Mapper sessions (one LRU plan cache, one engine pool),
+                 the MapperService request queue
   pinned       — the port's own page-locked host blocks (the gain call's
                  readback), with their counts
   graph        — CSR communication graphs, Metis IO, generators, and the
@@ -37,7 +38,7 @@ from .graph import CommGraph, DeviceGraph, GraphFormatError, device_pairs, \
 from .hierarchy import DistanceOracle, Hierarchy, supermuc_like, \
     tpu_v5e_fleet
 from .local_search import list_neighborhoods, register_neighborhood
-from .mapping import Mapper
+from .mapping import Mapper, MapperService
 from .objective import dense_gain_matrix, qap_objective, \
     qap_objective_dense, swap_gain
 from .plan import MappingPlan, MappingResult
@@ -49,7 +50,7 @@ __all__ = [
     "from_dense", "from_edges", "grid3d",
     "random_geometric", "read_metis", "validate", "write_metis",
     "DistanceOracle", "Hierarchy", "supermuc_like", "tpu_v5e_fleet",
-    "Mapper", "MappingPlan", "MappingResult",
+    "Mapper", "MapperService", "MappingPlan", "MappingResult",
     "MappingSpec", "MultilevelSpec", "PlanSpec", "ShapeBucket",
     "TopologySpec",
     "list_constructions", "register_construction",

@@ -7,6 +7,8 @@ staged through `MappingPlan` artifacts, on one device.
     result = plan.execute(g)                 # stage 2: run
     result = mapper.map(g)                   # thin wrapper: lower-or-fetch
     results = mapper.map_many(gs)            # one plan, one batched loop
+    with mapper.serve() as svc:              # a worker thread drains a queue
+        ticket = svc.submit(g)
 
 A `Mapper` owns one machine model — a :class:`Hierarchy` (wrapped into
 the ``tree`` topology) or any registered
@@ -17,14 +19,19 @@ shared by its plans.  ``device`` is ``"cuda"`` unless the caller passes
 ``"cpu"``; it is a constructor argument, not a spec field, so spec dicts
 round-trip with the JAX package unchanged.
 
-This is the port of the JAX package's ``core/mapping.py`` for ``map``,
-``map_many``, ``objective`` and ``gain_matrix``; the serving queue is
-not ported yet (ROADMAP.md queue 1).
+This is the port of the JAX package's ``core/mapping.py``: ``map``,
+``map_many``, ``objective``, ``gain_matrix`` and the request-queue hook
+``serve`` / :class:`MapperService` (its worker maps through the same
+Mapper, so on the Mapper's device).  The shape-bucketed, batching
+service is :class:`repro_torch.launch.serve.MappingService`.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
+import queue
+import threading
 from collections import Counter
 
 from ..runtime.device import resolve_device
@@ -32,7 +39,8 @@ from .graph import CommGraph
 from .plan import MappingPlan, MappingResult, _LRU
 from .spec import MappingSpec, ShapeBucket
 
-__all__ = ["Mapper", "MappingResult", "MappingPlan", "ShapeBucket"]
+__all__ = ["Mapper", "MapperService", "MappingResult", "MappingPlan",
+           "ShapeBucket"]
 
 # default caps for the session caches (override via Mapper(cache_caps=...)):
 # "plans" bounds the Mapper's plan LRU; "engines" bounds the shared
@@ -275,3 +283,76 @@ class Mapper:
             raise ValueError(f"graph has {g.n} processes but the machine "
                              f"has {self.h.n_pe} PEs — they must match "
                              f"(guide §4.1)")
+
+    # --------------------------------------------------------------- serve
+    def serve(self, requests: "queue.Queue | None" = None,
+              results: "queue.Queue | None" = None) -> "MapperService":
+        """Start a request-queue serving session over this Mapper."""
+        return MapperService(self, requests=requests, results=results)
+
+
+class MapperService:
+    """Request-queue serving hook: a daemon thread drains graphs through
+    one :class:`Mapper` session, so plan lowering (oracle, kernels,
+    engines) is paid once for the whole queue.  For shape-bucketed
+    dynamic batching use :class:`repro_torch.launch.serve.MappingService`.
+
+    ``submit(g)`` returns a ticket; ``(ticket, MappingResult)`` tuples (or
+    ``(ticket, Exception)`` on per-request failure) arrive on ``results``.
+    ``close()`` — or exiting the context manager — stops the thread after
+    draining already-queued requests.
+
+    The worker runs every map on the Mapper's device, launching on its
+    own thread's current CUDA stream.  While it runs, other threads
+    should leave that Mapper's device work to it: the kernels' launch
+    counts and the sync-counting scopes (``runtime/boundary.py``) are
+    process-wide and meant for one launching thread at a time.
+    """
+
+    def __init__(self, mapper: Mapper,
+                 requests: "queue.Queue | None" = None,
+                 results: "queue.Queue | None" = None):
+        self.mapper = mapper
+        self.requests = requests if requests is not None else queue.Queue()
+        self.results = results if results is not None else queue.Queue()
+        self._tickets = itertools.count()
+        self._closed = False
+        self._lock = threading.Lock()   # makes submit vs close atomic
+        self._thread = threading.Thread(target=self._drain,
+                                        name="viem-mapper", daemon=True)
+        self._thread.start()
+
+    def submit(self, g: CommGraph,
+               spec: MappingSpec | None = None) -> int:
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("MapperService is closed; requests "
+                                   "submitted now would never be served")
+            ticket = next(self._tickets)
+            self.requests.put((ticket, g, spec))
+        return ticket
+
+    def _drain(self):
+        while True:
+            item = self.requests.get()
+            if item is None:
+                break
+            ticket, g, spec = item
+            try:
+                out: object = self.mapper.map(g, spec=spec)
+            except Exception as exc:   # per-request isolation
+                out = exc
+            self.results.put((ticket, out))
+
+    def close(self, timeout: float | None = None):
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                self.requests.put(None)
+        self._thread.join(timeout)
+
+    def __enter__(self) -> "MapperService":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

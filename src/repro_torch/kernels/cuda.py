@@ -8,12 +8,15 @@ a stale one never loaded.  :func:`build` starts one ``nvcc`` per source,
 all at once, and returns their ``-Xptxas -v`` reports (registers, shared
 memory, spills).
 
-:func:`load` loads a library with ``ctypes`` once per process.
+:func:`load` loads a library with ``ctypes`` once per process, under a
+lock, so two threads never build or load one source twice.
 :class:`CudaKernel` is the handle a wrapper launches through: it passes
-device pointers and PyTorch's current stream, raises on a non-zero
-``cudaError_t`` from the launch, and counts its launches (``launches``
-— a plain integer that callers reset and read to prove a path went
-through the kernel).
+device pointers and PyTorch's current stream (the launching thread's),
+raises on a non-zero ``cudaError_t`` from the launch, and counts its
+launches (``launches`` — a plain integer that callers reset and read to
+prove a path went through the kernel).  The count takes no lock: it is
+exact while one thread launches at a time, as in the mapping service,
+whose worker thread does all of its Mapper's device work.
 
 Nothing here runs at import: this module is imported on machines with
 no CUDA toolkit.
@@ -26,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["CudaKernel", "build", "build_dir", "library_path", "load",
@@ -100,18 +104,20 @@ def build(names) -> dict:
 
 
 _LIBRARIES: dict = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def load(source: str) -> ctypes.CDLL:
     """The library of ``csrc/<source>.cu``, built if missing and loaded
     once per process, with ``viem_error_string`` bound."""
-    lib = _LIBRARIES.get(source)
-    if lib is None:
-        build([source])
-        lib = ctypes.CDLL(str(library_path(source)))
-        lib.viem_error_string.argtypes = [ctypes.c_int]
-        lib.viem_error_string.restype = ctypes.c_char_p
-        _LIBRARIES[source] = lib
+    with _LOAD_LOCK:
+        lib = _LIBRARIES.get(source)
+        if lib is None:
+            build([source])
+            lib = ctypes.CDLL(str(library_path(source)))
+            lib.viem_error_string.argtypes = [ctypes.c_int]
+            lib.viem_error_string.restype = ctypes.c_char_p
+            _LIBRARIES[source] = lib
     return lib
 
 

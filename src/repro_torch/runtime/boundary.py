@@ -19,8 +19,11 @@ On a CUDA device the scope turns on
 ``torch.cuda.set_sync_debug_mode("warn")`` and counts the warnings it
 raises, so ``syncs`` also catches syncs that did not go through
 ``read`` (a boolean-mask index, a ``.cpu()``, a 0-d CUDA tensor used as
-a Python index).  The debug mode is process-global: scopes are meant
-for one thread at a time, the engine's own use.
+a Python index).  The debug mode and the warning capture are
+process-global: scopes are meant for one thread at a time, the engine's
+own use.  A scope may run off the main thread (the mapping service's
+worker runs every engine scope of its Mapper) as long as no other
+thread syncs the device while it is open.
 """
 
 from __future__ import annotations

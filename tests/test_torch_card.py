@@ -889,3 +889,38 @@ def test_remap_monitor_on_card_equals_cpu(cuda):
     for row, (k1, k2) in zip(rg, lg):
         assert k1 > 0                       # the drift score is K1's
         assert (k2 > 0) == (row["triggered"] and row["skipped"] is None)
+
+
+def test_service_batch_on_card_equals_singles(cuda):
+    """Three same-bucket stencils (seeded integer weights) in one tick of
+    ``MappingService`` on the card take the batch branch — 3 requests
+    padded to ``max_batch`` = 4 lanes in the ``pow2`` bucket, K2 launched
+    with 4 lanes — and each result equals the same Mapper's single
+    ``map`` (tight bucket) on the card and the CPU port's, exactly."""
+    from repro_torch.launch.serve import MappingService
+    from repro_torch.testing import pair_gain_lanes
+    machine = tc.Hierarchy((4, 4, 4), (1.0, 10.0, 100.0))
+    spec = tc.MappingSpec(construction="random",
+                          neighborhood="communication", neighborhood_dist=2,
+                          preconfiguration="fast", engine="device",
+                          backend="pallas", seed=0)
+    rng = np.random.default_rng(9)
+    u, v, _ = tc.grid3d(4, 4, 4).edge_list()
+    graphs = [tc.from_edges(64, u, v, rng.integers(1, 10, len(u)) * 1.0)
+              for _ in range(3)]
+    mapper = tc.Mapper(machine, spec, device=cuda)
+    with pair_gain_lanes() as lanes, \
+            MappingService(mapper, max_batch=4, max_wait_s=1.0) as svc:
+        tickets = [svc.submit(g) for g in graphs]
+        got = dict(svc.results.get(timeout=300) for _ in tickets)
+        stats = svc.stats()
+    assert (stats["batches"], stats["batched_requests"],
+            stats["errors"]) == (1, 3, 0)
+    assert lanes and set(lanes) == {4}
+    cpu = tc.Mapper(machine, spec, device="cpu")
+    for t, g in zip(tickets, graphs):
+        one, ref = mapper.map(g), cpu.map(g)
+        for want in (one, ref):
+            assert np.array_equal(got[t].perm, want.perm)
+            assert got[t].final_objective == want.final_objective
+            assert got[t].initial_objective == want.initial_objective

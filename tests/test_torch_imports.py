@@ -44,5 +44,6 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.obs.metrics", "repro_torch.obs.export",
             "repro_torch.runtime.fault_tolerance",
             "repro_torch.monitor.loop", "repro_torch.cli.remap_watch",
-            "repro_torch.launch.mesh"} <= set(report["names"])
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.specs"} <= set(report["names"])
     assert report["leaked"] == [], f"repro_torch pulled in {report}"
