@@ -13,7 +13,11 @@ one JSON line after each, failing loudly on the first fault:
               ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at
               once; also ``host_alloc.cu``, the page-locked blocks of the
               gain call) and prints the ``-Xptxas -v`` register / shared-
-              memory / spill report, K1's, K2's and K3's in the build line.
+              memory / spill report, K1's, K2's, K3's and K4's float32
+              route's in the build line.  Fails unless the float32
+              route's entries spill nothing and ``cuobjdump -sass`` of its
+              library shows tf32 ``HGMMA`` (``wgmma`` on the tensor cores)
+              in its attention entry.
 3. kernels  — holds K1 (objective) and K2 (pair gains) against their plain
               PyTorch versions on the card at the main path's shapes
               (E = 11,520 edges on 4096 PEs; P = 1,824,720 pairs, K = 8):
@@ -184,15 +188,19 @@ one JSON line after each, failing loudly on the first fault:
               made, freed and reused, PyTorch's and the port's own.
 17. flash   — holds K4 (flash attention) against its plain version on
               the card at the serve shape (B 4, T 2048, H 32, KV 8, hd
-              128, bf16) and at starcoder2-7b's windowed shape (B 1, T
-              8192, H 36, KV 4, hd 128, window 4096, bf16), and on small
-              cases at float32 and bf16 (T ragged against both routes'
-              tiles, T = 1, G = 1, MQA, one kv tile); every case must take
-              its dtype's route (bf16: ``csrc/flash_attention_sm90.cu``,
-              float32: ``csrc/flash_attention.cu``) and no other.  Times
-              K4, its plain version and ``scaled_dot_product_attention``
-              (the yardstick; the port never calls it) beside the bound,
-              at both shapes in bf16 and at the serve shape in float32.
+              128) and at starcoder2-7b's windowed shape (B 1, T 8192, H
+              36, KV 4, hd 128, window 4096), each in bf16 and float32,
+              and on small cases at float32 and bf16 (T ragged against
+              both routes' tiles, T = 1, G = 1, MQA, one kv tile); every
+              case must take its dtype's route (bf16:
+              ``csrc/flash_attention_sm90.cu``, float32:
+              ``csrc/flash_attention.cu``, both ``wgmma`` + TMA, the
+              float32 one through a 3xTF32 split) and no other.  Times K4,
+              its plain version and ``scaled_dot_product_attention`` (the
+              yardstick; the port never calls it) beside the bound; a
+              float32 record's bound is one TF32 pass on the tensor cores,
+              with the 3xTF32 split's (three passes) and the CUDA cores'
+              float32 bound beside it.
 18. serve   — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
               at the full published config (40 layers, random weights)
               with the launch counts set to 0 just before and read just
@@ -244,9 +252,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
 # outside the tensor cores (K1 and K2's arithmetic is scalar fp32/int32),
-# TF32 on the tensor cores (the least time for K3's 2n³; its 3xTF32 split
-# issues three times that) and bf16 on the tensor cores (the least time
-# for K4's bf16 attention)
+# TF32 on the tensor cores (the least time for K3's 2n³ and K4's float32
+# attention; their 3xTF32 split issues three times that) and bf16 on the
+# tensor cores (the least time for K4's bf16 attention)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
@@ -382,6 +390,7 @@ def phase_device():
 # ------------------------------------------------------------ phase 2
 def phase_build():
     from repro_torch.kernels.cuda import build, library_path
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     t0 = time.perf_counter()
     reports = build(["qap_objective", "pair_gain", "swap_gain",
                      "flash_attention", "flash_attention_sm90",
@@ -392,13 +401,34 @@ def phase_build():
             if any(k in line for k in ("registers", "smem", "spill",
                                        "Compiling entry")):
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
+    f32 = ptxas_usage(reports["flash_attention"])
+    for entry, use in f32.items():
+        check(use.get("spill_stores", 0) == 0 and
+              use.get("spill_loads", 0) == 0,
+              f"build: K4's float32 entry {entry} spills: {use}")
+    sass = sass_functions(library_path("flash_attention"))
+    hgmma = sass_ops(sass, "flash_fwd_tf32", "HGMMA")
+    check(any("TF32" in op for ops in hgmma.values() for op in ops),
+          f"build: no tf32 HGMMA in the SASS of K4's float32 attention "
+          f"entry (HGMMA by entry: {hgmma})")
+    # q's small parts, the one register A operand of its tile loop, stay
+    # in their registers round the loop in every head dim's entry
+    clobbered = {f: clobbered_wgmma_operands(lines)
+                 for f, lines in sass.items() if "flash_fwd_tf32" in f}
+    check(len(clobbered) == len(HEAD_DIMS) and not any(clobbered.values()),
+          f"build: K4's float32 tile loop overwrites the registers of q's "
+          f"small parts: {({f: c[:4] for f, c in clobbered.items() if c})}")
     emit({"phase": "build", "seconds": secs,
           "libraries": [str(library_path(n).relative_to(ROOT))
                         for n in reports],
           "qap_objective": ptxas_usage(reports["qap_objective"]),
           "pair_gain": ptxas_usage(reports["pair_gain"]),
           "swap_gain": dict(ptxas_usage(reports["swap_gain"]),
-                            gain_tile_dynamic_smem=swap_gain_smem())})
+                            gain_tile_dynamic_smem=swap_gain_smem()),
+          "flash_attention_f32": f32,
+          "flash_attention_f32_hgmma": hgmma,
+          "flash_attention_f32_clobbered": {
+              f: len(c) for f, c in clobbered.items()}})
 
 
 def ptxas_usage(report: str) -> dict:
@@ -426,6 +456,121 @@ def ptxas_usage(report: str) -> dict:
             m = re.search(r"(\d+) bytes smem", line)
             out[name]["static_smem"] = int(m.group(1)) if m else 0
     return out
+
+
+def sass_functions(lib) -> dict:
+    """{function: SASS lines} of the built library at path ``lib``, from
+    ``cuobjdump -sass``; the names are the mangled ones."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"build: cuobjdump -sass failed for "
+                               f"{lib}: {out.stderr.strip()[-2000:]}")
+    funcs, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None:
+            cur.append(line)
+    return funcs
+
+
+def sass_ops(funcs: dict, entry: str, opcode: str) -> dict:
+    """{function: {instruction: count}} of the ``opcode`` instructions in
+    ``funcs`` (:func:`sass_functions`), for every function whose name
+    holds ``entry``."""
+    import re
+    from collections import Counter
+    out = {}
+    for f, lines in funcs.items():
+        if entry not in f:
+            continue
+        ops = Counter(m.group(1) for line in lines
+                      for m in [re.search(rf"\b({opcode}\S*)", line)] if m)
+        out[f] = dict(ops)
+    return out
+
+
+# SASS: an instruction's address, opcode and operands (a guard dropped)
+_SASS_INSN = (r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+              r"([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+# opcodes whose first register operand is read, not written
+_SASS_NO_DEST = frozenset((
+    "ST", "STS", "STG", "STL", "RED", "BAR", "BRA", "BSSY", "BSYNC",
+    "SYNCS", "MEMBAR", "WARPGROUP", "CALL", "RET", "EXIT", "UTMALDG",
+    "UTMASTG", "UBLKCP", "CCTL", "FENCE", "NOP", "YIELD", "WARPSYNC",
+    "ERRBAR", "DEPBAR"))
+
+
+def _sass_written(op: str, args: list) -> set:
+    """The general registers an instruction writes: its first register
+    operand after any predicate outputs, widened by the opcode (.64,
+    .WIDE: 2; .128: 4; HGMMA 64xNx8 F32: N/2)."""
+    import re
+    base = op.split(".")[0]
+    if base in _SASS_NO_DEST or base.endswith("SETP"):
+        return set()
+    rest = list(args)
+    while rest and re.fullmatch(r"!?U?P(T|R|\d+)", rest[0]):
+        rest.pop(0)
+    m = re.fullmatch(r"R(\d+)", rest[0]) if rest else None
+    if m is None:
+        return set()
+    if base == "HGMMA":
+        n = int(re.search(r"\.64x(\d+)x", op).group(1)) // 2
+    elif re.search(r"\.128\b", op):
+        n = 4
+    elif re.search(r"\.(64|WIDE)\b", op) or (base == "CS2R" and
+                                             ".32" not in op):
+        n = 2
+    else:
+        n = 1
+    return set(range(int(m.group(1)), int(m.group(1)) + n))
+
+
+def clobbered_wgmma_operands(lines) -> list:
+    """Register A operands of ``wgmma`` (RS-form HGMMA: 4 registers from
+    the first after the accumulator) that a loop carries and yet
+    overwrites: for each backward branch, an HGMMA in its body whose A
+    registers no instruction of the body writes before it, but one
+    writes after it.  Where the source never changes the operand in the
+    loop (K4's float32 kernel: q's small parts), the next trip's HGMMA
+    then reads a value that is not the operand's — the fault ptxas made
+    of that kernel at hd 32 without its keep-alive read (``csrc/
+    flash_attention.cu``).  A loop that writes the next trip's operand
+    at the end of a trip, as K3's does (``swap_gain.cu``: ``split_a``
+    after the wait), is flagged too: this check is for the former kind.
+    Returns (HGMMA address, operand, writer address, writer opcode,
+    registers hit) per write."""
+    import re
+    insns = []
+    for line in lines:
+        m = re.search(_SASS_INSN, line)
+        if m:
+            args = [a.strip() for a in m.group(3).split(",") if a.strip()]
+            insns.append((int(m.group(1), 16), m.group(2), args))
+    found = []
+    for addr, op, args in insns:
+        if op.split(".")[0] != "BRA" or not args or \
+                not args[-1].startswith("0x") or int(args[-1], 16) >= addr:
+            continue
+        body = [x for x in insns if int(args[-1], 16) <= x[0] <= addr]
+        for i, (at, o, g) in enumerate(body):
+            if not o.startswith("HGMMA") or len(g) < 2 or \
+                    not re.fullmatch(r"R\d+", g[1]):
+                continue
+            regs = set(range(int(g[1][1:]), int(g[1][1:]) + 4))
+            if any(regs & _sass_written(o2, g2) for _, o2, g2 in body[:i]):
+                continue                # set in the loop before its use
+            for at2, o2, g2 in body[i + 1:]:
+                hit = regs & _sass_written(o2, g2)
+                if hit:
+                    found.append((hex(at), g[1], hex(at2), o2,
+                                  sorted(hit)))
+    return found
 
 
 def swap_gain_smem() -> int:
@@ -2532,22 +2677,26 @@ def phase_gain(topo, g, perm, pairs, forms):
     return rec, launches
 
 # ------------------------------------------------------------ phase 10
-# K4 at the serve phase's prefill shape (granite-3-8b, B 4 x T 2048), bf16
-# and float32 (the float32 check's shape), and at starcoder2-7b's
-# sliding-window attention (T 8192, window 4096), bf16; small cases at
-# float32 and bf16: T ragged against the 64-row float32 tiles and the
-# 128-row bf16 tiles, T = 1, G = 1 with a window, MQA, and T = 64 (one kv
-# tile per query row, so both sides round the same p).
+# K4 at the serve phase's prefill shape (granite-3-8b, B 4 x T 2048) and
+# at starcoder2-7b's sliding-window attention (T 8192, window 4096), bf16
+# and float32 (the serve shape is the float32 check's); small cases at
+# float32 and bf16: T ragged against the float32 route's 128-row q tiles
+# (two 64-row warpgroups) and 32-key kv tiles and the bf16 route's 128-row
+# tiles, T = 1, G = 1 with a window, MQA, and T = 64 (one bf16 kv tile per
+# query row, so both sides round the same p).
 # (b, t, h, kv, hd, window)
 FLASH_SHAPES = {"serve": ((4, 2048, 32, 8, 128, 0), "bfloat16"),
                 "window": ((1, 8192, 36, 4, 128, 4096), "bfloat16"),
-                "serve-f32": ((4, 2048, 32, 8, 128, 0), "float32")}
+                "serve-f32": ((4, 2048, 32, 8, 128, 0), "float32"),
+                "window-f32": ((1, 8192, 36, 4, 128, 4096), "float32")}
 FLASH_SMALL = {"ragged": (2, 333, 8, 2, 64, 0),
                "g1-window": (1, 200, 4, 4, 32, 48),
                "mqa": (2, 130, 8, 1, 128, 0),
                "one-tile": (4, 64, 32, 8, 128, 0),
                "one-tile-window": (2, 64, 8, 2, 96, 16),
                "t1": (2, 1, 8, 2, 128, 0),
+               "t31": (2, 31, 8, 2, 64, 0),
+               "t33": (2, 33, 6, 2, 96, 0),
                "t127": (2, 127, 8, 2, 128, 0),
                "t128": (2, 128, 8, 2, 128, 0),
                "t129": (2, 129, 6, 2, 96, 0),
@@ -2661,18 +2810,28 @@ def phase_flash():
                         .abs().max())
         library_ms = cuda_ms(lib, iters=5 if heavy else 10, warmup=1)
         # operations: 4·hd flop per visible (query, key) pair per head, at
-        # the bf16 tensor-core peak for bf16 and the CUDA cores' float32
-        # peak for float32 (full float32, which TF32 would not give);
+        # the bf16 tensor-core peak for bf16 and, for float32, at the TF32
+        # tensor-core peak (one pass: the least any tensor-core scheme
+        # takes); the float32 route's 3xTF32 split issues three passes,
+        # and full float32 on the CUDA cores would run at their peak;
         # bytes: q, k, v read once, o written once
         flops = 4.0 * hd * visible_pairs(t, window) * b * h
+        moved = nbytes(q, k, v) + nbytes(q)
         bound_ms, bound_by = bound(
-            nbytes(q, k, v) + nbytes(q), flops,
-            PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+            moved, flops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32)
         rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    gflop=flops / 1e9,
                    tflops_achieved=flops / (ms * 1e-3) / 1e12,
                    sdpa_max_abs_err=lib_err)
+        if dtype == torch.float32:
+            rec.update(bound_3xtf32_ms=bound(moved, 3.0 * flops,
+                                             PEAK_TF32)[0],
+                       bound_fp32_cores_ms=bound(moved, flops,
+                                                 PEAK_FP32)[0])
+            rec.update(share_of_3xtf32_bound=rec["bound_3xtf32_ms"] / ms,
+                       share_of_fp32_cores_bound=rec["bound_fp32_cores_ms"]
+                       / ms)
         records[name] = rec
         emit({"phase": "flash", "case": name, "shape": shape,
               "dtype": dname, **rec})

@@ -18,8 +18,9 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py — flash_attention_kernel
 // (`_flash_fwd`, body `_flash_kernel`), for bfloat16 inputs.  float32
-// inputs go to csrc/flash_attention.cu, which keeps the reference's full
-// float32 q·k on the CUDA cores (tensor cores would give TF32).
+// inputs go to csrc/flash_attention.cu, which keeps the reference's
+// float32 precision on the tensor cores through a 3xTF32 split (one TF32
+// pass would not).
 //
 // Bound on the H100: operations.  Causal attention does 4·hd flop per
 // visible (query, key) pair, 2·B·H·hd·(visible pairs) in all: 137.5 GFLOP

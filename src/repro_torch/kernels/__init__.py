@@ -18,7 +18,7 @@
                   replacing ``flash_attention_kernel``; the LM path's
                   attention core.  Two routes by dtype: bfloat16 through
                   ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), float32
-                  through ``csrc/flash_attention.cu``
+                  through ``csrc/flash_attention.cu`` (3xTF32 wgmma, TMA)
   contract      — graph contraction for the multilevel V-cycle (heavy-
                   edge matching, sorted-run edge collapsing): the JAX
                   package's plain ``jnp`` code, as torch ops (no kernel)

@@ -14,9 +14,11 @@ lock, so two threads never build or load one source twice.
 device pointers and PyTorch's current stream (the launching thread's),
 raises on a non-zero ``cudaError_t`` from the launch, and counts its
 launches (``launches`` — a plain integer that callers reset and read to
-prove a path went through the kernel).  The count takes no lock: it is
-exact while one thread launches at a time, as in the mapping service,
-whose worker thread does all of its Mapper's device work.
+prove a path went through the kernel).  The count takes no lock and is
+one per process: it is exact while one thread launches at a time, as in
+the mapping service, whose worker thread does all of its Mapper's device
+work.  (The sync counts of ``runtime.boundary`` are charged per thread;
+this count is not.)
 
 Nothing here runs at import: this module is imported on machines with
 no CUDA toolkit.

@@ -12,8 +12,13 @@ one of two hand-written kernels by dtype, both replacing
              ``wgmma`` on bf16 tiles fed by TMA through an mbarrier ring,
              128-row q and kv tiles, exp2 with log2 e folded into the
              scale;
-  float32  — ``csrc/flash_attention.cu`` (:data:`FLASH_F32_KERNEL`): the
-             CUDA cores at full float32, 64-row tiles.
+  float32  — ``csrc/flash_attention.cu`` (:data:`FLASH_F32_KERNEL`):
+             ``wgmma`` on TF32 tiles through a 3xTF32 split (big·big +
+             big·small + small·big of every product), fed by TMA, 128-row
+             q tiles (two warpgroups of 64 rows) and 32-key kv tiles,
+             exp2 with log2 e folded into the scale; a pre-pass in the
+             same launch splits k and v and transposes v into a scratch
+             this wrapper allocates.
 
 On CPU tensors it runs the plain PyTorch version
 :func:`~repro_torch.kernels.ref.flash_attention_plain`.  All compute
@@ -32,24 +37,37 @@ from .cuda import CudaKernel
 from .ref import flash_attention_plain
 
 __all__ = ["FLASH_F32_KERNEL", "FLASH_KERNEL", "FLASH_SM90_TILES",
-           "FLASH_TILE", "HEAD_DIMS", "LOG2E", "flash_attention_kernel",
-           "flash_attention_plain"]
+           "FLASH_TILE", "HEAD_DIMS", "LOG2E", "f32_scratch_floats",
+           "flash_attention_kernel", "flash_attention_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# both entries: q, k, v, o; batch, seq, heads, kv_heads, head_dim; window,
-# scale (hd^-½·log2 e for bfloat16, hd^-½ for float32); stream
+# the bfloat16 entry: q, k, v, o; batch, seq, heads, kv_heads, head_dim;
+# window, scale (hd^-½·log2 e); stream.  The float32 entry takes its
+# scratch and the scratch's floats after o.
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_F32_ARGS = _ARGS[:4] + [_P, ctypes.c_longlong] + _ARGS[4:]
 
 FLASH_KERNEL = CudaKernel(          # bfloat16
     "flash_attention", "flash_attention_sm90", "viem_flash_attention_sm90",
     _ARGS)
 FLASH_F32_KERNEL = CudaKernel(      # float32
-    "flash_attention_f32", "flash_attention", "viem_flash_attention", _ARGS)
+    "flash_attention_f32", "flash_attention", "viem_flash_attention",
+    _F32_ARGS)
 
 HEAD_DIMS = (32, 64, 96, 128)   # both kernels' head dims
-FLASH_TILE = 64                 # q rows and kv rows of a float32 tile
+FLASH_TILE = (128, 32)          # q rows and kv rows of a float32 tile
 FLASH_SM90_TILES = (128, 128)   # q rows and kv rows of a bf16 tile
-LOG2E = math.log2(math.e)       # folded into the bf16 kernel's scale
+LOG2E = math.log2(math.e)       # folded into both kernels' scale
+
+
+def f32_scratch_floats(b: int, t: int, kv: int, hd: int) -> int:
+    """Floats of scratch the float32 kernel takes for these sizes, as its
+    C side sizes them (``viem_flash_attention_scratch_floats``: k's big
+    and small parts and vᵀ's); builds the kernel's library if needed."""
+    fn = FLASH_F32_KERNEL.library().viem_flash_attention_scratch_floats
+    fn.argtypes = [_I] * 4
+    fn.restype = ctypes.c_longlong
+    return int(fn(b, t, kv, hd))
 
 
 def _check(q, k, v, window):
@@ -95,14 +113,16 @@ def flash_attention_kernel(q, k, v, *, window: int = 0):
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention_kernel: {key} is not 16-byte "
                              f"aligned")
-    if q.dtype == torch.bfloat16:
-        kernel, scale = FLASH_KERNEL, hd ** -0.5 * LOG2E
-    else:
-        kernel, scale = FLASH_F32_KERNEL, hd ** -0.5
+    kv = int(k.shape[2])
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      b, t, h, int(k.shape[2]), hd, int(window), scale,
-                      stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        args = (b, t, h, kv, hd, int(window), hd ** -0.5 * LOG2E, stream)
+        if q.dtype == torch.bfloat16:
+            FLASH_KERNEL.launch(*ptrs, *args)
+        else:
+            n = f32_scratch_floats(b, t, kv, hd)
+            scratch = torch.empty(n, dtype=torch.float32, device=q.device)
+            FLASH_F32_KERNEL.launch(*ptrs, scratch.data_ptr(), n, *args)
     return o

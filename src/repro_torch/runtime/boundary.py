@@ -15,23 +15,53 @@ hidden:
     hb.syncs      # syncs PyTorch itself reported inside the scope
                   # (CUDA only; None elsewhere)
 
-On a CUDA device the scope turns on
-``torch.cuda.set_sync_debug_mode("warn")`` and counts the warnings it
-raises, so ``syncs`` also catches syncs that did not go through
+On a CUDA device the scope has PyTorch warn on every synchronizing
+operation (``torch.cuda.set_sync_debug_mode("warn")``) and counts the
+warnings, so ``syncs`` also catches syncs that did not go through
 ``read`` (a boolean-mask index, a ``.cpu()``, a 0-d CUDA tensor used as
-a Python index).  The debug mode and the warning capture are
-process-global: scopes are meant for one thread at a time, the engine's
-own use.  A scope may run off the main thread (the mapping service's
-worker runs every engine scope of its Mapper) as long as no other
-thread syncs the device while it is open.
+a Python index).
+
+A scope behaves as if it were thread-local, as ``jax.transfer_guard``
+is, though the debug mode and the warnings machinery are process-global:
+
+  * the debug mode is reference-counted: the first CUDA scope to open
+    in the process turns it to "warn", the last one to close restores
+    the mode that was there before the first opened;
+  * while any CUDA scope is open, one hook (``warnings.showwarning``)
+    routes the warnings: a sync warning is charged to the innermost
+    open scope of the thread that raised it (each thread keeps its own
+    stack of open scopes); a sync warning from a thread with no open
+    scope, and every other warning, go on to the hook that was there
+    before, so nothing is swallowed.  A filter makes every sync warning
+    reach the hook (not once per source line); both go when the last
+    scope closes.
+
+So two threads may hold scopes at once, in any order of opening and
+closing, and each counts its own syncs.  Nested scopes on one thread
+count a sync in the innermost CUDA scope.  While a scope is open
+anywhere, a thread outside every scope sees its own syncs as warnings.
+A ``warnings.catch_warnings`` block in another thread that opens before
+a scope and closes while it is open puts back the hook it saw, and the
+scope's later syncs then go uncounted: such a block is process-global
+in the same way.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import warnings
 
 __all__ = ["Boundary", "host_boundary"]
+
+# what PyTorch's sync warnings say ("called a synchronizing CUDA
+# operation"), matched without regard to case
+_SYNC = "synchroniz"
+
+_LOCK = threading.Lock()
+_LOCAL = threading.local()      # .stack: this thread's open CUDA scopes
+_open = 0                       # CUDA scopes open in the process
+_saved = None                   # (mode, hook, filter) from before the first
 
 
 class Boundary:
@@ -49,24 +79,71 @@ class Boundary:
         return t.item() if t.dim() == 0 else t.cpu().numpy()
 
 
+def _stack() -> list:
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+def _router(prev):
+    """The hook installed while scopes are open: a sync warning goes to
+    the raising thread's innermost open scope, anything else to
+    ``prev``."""
+    def showwarning(message, category, filename, lineno, file=None,
+                    line=None):
+        stack = getattr(_LOCAL, "stack", None)
+        if stack and _SYNC in str(message).lower():
+            stack[-1].syncs += 1
+            return
+        prev(message, category, filename, lineno, file, line)
+    return showwarning
+
+
+def _open_scope(b: Boundary) -> None:
+    global _open, _saved
+    import torch
+    with _LOCK:
+        if _open == 0:
+            mode = torch.cuda.get_sync_debug_mode()
+            hook = warnings.showwarning
+            warnings.filterwarnings("always", message=f".*{_SYNC}")
+            _saved = (mode, hook, warnings.filters[0])
+            warnings.showwarning = _router(hook)
+            torch.cuda.set_sync_debug_mode("warn")
+        _open += 1
+    b.syncs = 0
+    _stack().append(b)
+
+
+def _close_scope(b: Boundary) -> None:
+    global _open, _saved
+    import torch
+    _stack().remove(b)
+    with _LOCK:
+        _open -= 1
+        if _open == 0:
+            mode, hook, flt = _saved
+            _saved = None
+            torch.cuda.set_sync_debug_mode(mode)
+            warnings.showwarning = hook
+            if flt in warnings.filters:
+                warnings.filters.remove(flt)
+
+
 @contextlib.contextmanager
 def host_boundary(tag: str, device=None):
     """Mark a deliberate host<->device crossing named ``tag`` (in the
     style of a metrics key: ``"engine.sweeps"``, ``"plan.objective"``)
     and yield its :class:`Boundary`.  With a CUDA ``device`` the syncs
-    inside the scope are counted through PyTorch's sync debug mode."""
+    inside the scope, on this thread, are counted through PyTorch's sync
+    debug mode."""
     b = Boundary(tag)
     if device is None or getattr(device, "type", device) != "cuda":
         yield b
         return
-    import torch
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("warn")
+    _open_scope(b)
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            yield b
+        yield b
     finally:
-        torch.cuda.set_sync_debug_mode(prev)
-    b.syncs = sum(1 for w in caught
-                  if "synchroniz" in str(w.message).lower())
+        _close_scope(b)

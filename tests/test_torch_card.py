@@ -537,7 +537,7 @@ def _assert_flash_close(got, q, k, v, window):
 @pytest.mark.parametrize("window", [0, 48, 4096])
 @pytest.mark.parametrize("h,kv,hd", FLASH_HEADS)
 def test_flash_kernel_equals_plain(cuda, h, kv, hd, window, dtype):
-    # T ragged against the 64-row tiles; longer than the 4096 window
+    # T ragged against both routes' tiles; longer than the 4096 window
     b, t = (1, 4500) if window == 4096 else (2, 333)
     gen = torch.Generator(device=cuda).manual_seed(h * 1000 + window)
     q, k, v = (torch.randn((b, t, n, hd), generator=gen, device=cuda)
@@ -579,6 +579,24 @@ def test_flash_sm90_ragged_against_its_tiles(cuda, h, kv, hd, t, window):
     before = _flash_launches()
     got = flash_attention_kernel(q, k, v, window=window)
     assert _flash_launches() == (before[0] + 1, before[1])
+    assert bool(torch.isfinite(got).all())
+    _assert_flash_close(got, q, k, v, window)
+    assert torch.equal(got, flash_attention_kernel(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("t,window", [(31, 0), (32, 0), (33, 0), (63, 0),
+                                      (65, 0), (127, 0), (128, 0), (129, 0),
+                                      (200, 33)])
+@pytest.mark.parametrize("h,kv,hd", FLASH_HEADS)
+def test_flash_f32_ragged_against_its_tiles(cuda, h, kv, hd, t, window):
+    """float32 at T on both sides of the float32 route's 32-key kv tiles,
+    64-row warpgroups and 128-row q tiles, through that kernel alone."""
+    gen = torch.Generator(device=cuda).manual_seed(h * 10 + t)
+    q, k, v = (torch.randn((2, t, n, hd), generator=gen, device=cuda)
+               for n in (h, kv, kv))
+    before = _flash_launches()
+    got = flash_attention_kernel(q, k, v, window=window)
+    assert _flash_launches() == (before[0], before[1] + 1)
     assert bool(torch.isfinite(got).all())
     _assert_flash_close(got, q, k, v, window)
     assert torch.equal(got, flash_attention_kernel(q, k, v, window=window))
@@ -924,3 +942,62 @@ def test_service_batch_on_card_equals_singles(cuda):
             assert np.array_equal(got[t].perm, want.perm)
             assert got[t].final_objective == want.final_objective
             assert got[t].initial_objective == want.initial_objective
+
+
+def test_two_services_count_their_own_syncs(cuda):
+    """Two device-engine ``MappingService`` s serving at once, each from
+    its own worker thread: every sweep loop's observed syncs equal its
+    counted reads (each thread's syncs are charged to its own scope), the
+    two services' loops overlap in time, and the sync debug mode is back
+    at 0 afterwards."""
+    import threading
+    import time
+
+    from repro_torch.engine.sweep import RefinementEngine
+    from repro_torch.launch.serve import MappingService
+    machine = tc.Hierarchy((4, 8, 8), (1.0, 10.0, 100.0))
+    spec = tc.MappingSpec(construction="random",
+                          neighborhood="communication", neighborhood_dist=2,
+                          preconfiguration="fast", engine="device",
+                          backend="pallas", seed=0)
+    rng = np.random.default_rng(5)
+    u, v, _ = tc.grid3d(8, 8, 4).edge_list()
+    loops, lock = [], threading.Lock()
+    orig = RefinementEngine._sweep
+
+    def sweep(eng, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig(eng, *a, **kw)
+        with lock:
+            loops.append((threading.get_ident(), t0,
+                          time.perf_counter(), dict(eng.last_syncs)))
+        return out
+
+    RefinementEngine._sweep = sweep
+    try:
+        services = [MappingService(tc.Mapper(machine, spec, device=cuda),
+                                   max_batch=2, max_wait_s=0.01)
+                    for _ in range(2)]
+        try:
+            tickets = [[svc.submit(tc.from_edges(
+                256, u, v, rng.integers(1, 10, len(u)) * 1.0))
+                for _ in range(6)] for svc in services]
+            for svc, ts in zip(services, tickets):
+                got = dict(svc.results.get(timeout=300) for _ in ts)
+                assert sorted(got) == sorted(ts)
+                assert not any(isinstance(r, Exception)
+                               for r in got.values())
+        finally:
+            for svc in services:
+                svc.close()
+    finally:
+        RefinementEngine._sweep = orig
+    assert torch.cuda.get_sync_debug_mode() == 0
+    names = {ident for ident, *_ in loops}
+    assert len(names) == 2                  # both workers swept
+    for _, _, _, syncs in loops:
+        assert syncs["reads"] > 0
+        assert syncs["observed"] == syncs["reads"]
+    spans = {n: [(a, b) for m, a, b, _ in loops if m == n] for n in names}
+    one, two = spans.values()
+    assert any(a0 < b1 and a1 < b0 for a0, b0 in one for a1, b1 in two)
