@@ -215,6 +215,35 @@ one JSON line after each, failing loudly on the first fault:
               version, with the counts set to 0 just before and read just
               after: the float32 route once per layer, the bf16 route
               never.
+19. train:parity — granite-3-2b at full width (d 2048, 32/8 heads,
+              vocab 49,408), 2 layers, float32: two ``train_step`` calls
+              (batch 4 × 256 SyntheticLM tokens, 2 microbatches,
+              ``OptConfig()``) on the card and on the CPU from one
+              seeded initial state: losses and grad norms within 1e-5
+              relative, every parameter, m and v within 1e-5 relative
+              Frobenius error per tensor; K4 launched 0 times (training
+              attends through the blocked twin), no host sync inside a
+              step.
+20. train   — ``launch.train.train("granite-3-2b", steps=4,
+              global_batch=4, seq_len=4096, microbatches=4)`` at the
+              full published config (40 layers, bf16, remat "full",
+              2.635 B parameters, seeded random weights) with the launch
+              counts set to 0 just before and read just after: every loss
+              and grad norm finite, the first loss within 1.0 of ln V,
+              step 4, m nonzero in every tensor and every matrix moved,
+              K4 launched 0 times, 0 host syncs inside every step (sync
+              debug mode through ``host_boundary``), the batch uploads
+              syncless and the log reads counted.  Prints the per-step
+              seconds (median of steps 2–4), tokens/s, MFU against the
+              bf16 dense peak, peak memory, the losses, and one more
+              step's device time split (``train_split``) into the
+              blocked attention, the other matmuls, AdamW and the rest.
+21. train:checkpoint — the train:parity shape in bf16: 2 steps,
+              ``save_async``, 2 more (A); a fresh state restored from
+              step 2 (equal to the saved one bit for bit) and 2 more
+              (B); the 4 steps uninterrupted (C).  B must equal A bit for
+              bit, or (if the card's steps are not deterministic) lie
+              within A's spread against C; the line says which.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 K4 one per route: route, source, the TPU kernel it replaces, launches on
@@ -2902,51 +2931,87 @@ def prefill_pair(cfg, seed, batch, prompt_len, max_len):
     return logits, plain, k4_s, plain_s, params, prompts
 
 
-def device_split(fn):
+def _group(kernel: str) -> str:
+    """A device kernel's group by its name: K4 (flash_fwd_sm90, the bf16
+    route, and flash_fwd, the float32 one), cuBLAS/CUTLASS matmuls, or
+    other."""
+    low = kernel.lower()
+    if "flash_fwd" in low:
+        return "K4 flash_fwd"
+    if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                              "sm90_", "sm80_", "ampere_")):
+        return "matmul"
+    return "other"
+
+
+def device_split(fn, trace=False):
     """Profile one call of ``fn`` (ending in a synchronize) with
     torch.profiler: the kernels' device time by name (kernel events
     only, so a kernel is not counted again under the operator that
     launched it), grouped into K4, matmuls and the rest, the host-clock
     wall time of the profiled call, and the device's idle share of it.
+    With ``trace``, the profiler records the card alone and the kernels
+    are read from its exported Chrome trace: the profiler's own event
+    tables take minutes over a train step's 10⁵ kernels.
     {"error": ...} if the profiler gives no device time on this
     machine."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if not trace:
+        activities.insert(0, ProfilerActivity.CPU)
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-    except (RuntimeError, AttributeError) as exc:
+        rows = _trace_rows(prof) if trace else _table_rows(prof)
+    except (RuntimeError, AttributeError, OSError, ValueError) as exc:
         return {"error": f"{type(exc).__name__}: {exc}"}
     busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
         return {"error": "the profiler recorded no device time"}
-    # K4: flash_fwd_sm90 (bf16 route) and flash_fwd (float32 route)
     groups = {"K4 flash_fwd": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms, _ in rows:
-        low = name.lower()
-        if "flash_fwd" in low:
-            groups["K4 flash_fwd"] += ms
-        elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
-                                    "cutlass", "sm90_")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
+        groups[_group(name)] += ms
     top = sorted(rows, key=lambda r: -r[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
             "kernel_launches": sum(c for _, _, c in rows),
             "groups_ms": groups,
             "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
-                            for n, ms, c in top]}
+                            for n, ms, c in top],
+            "matmul_kernel_names": sorted({n[:60] for n, _, _ in rows
+                                           if _group(n) == "matmul"})}
+
+
+def _table_rows(prof) -> list:
+    """(kernel name, device ms, launches) from the profiler's table."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def _trace_rows(prof) -> list:
+    """(kernel name, device ms, launches) summed over the kernel events
+    of the profiler's Chrome trace (durations in µs), written to and
+    read from a scratch file under the checkout's ``build/``."""
+    path = ROOT / "build" / "device_split.trace.json"
+    path.parent.mkdir(exist_ok=True)
+    try:
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        path.unlink(missing_ok=True)
+    rows = {}
+    for ev in events:
+        if ev.get("cat") == "kernel" and ev.get("dur", 0) > 0:
+            ms, n = rows.get(ev["name"], (0.0, 0))
+            rows[ev["name"]] = (ms + ev["dur"] / 1e3, n + 1)
+    return [(name, ms, n) for name, (ms, n) in rows.items()]
 
 
 def phase_serve(k4_serve_ms):
@@ -3065,6 +3130,409 @@ def phase_serve(k4_serve_ms):
     return launches, f32_launches
 
 
+# ------------------------------------------------------------ phases 19–21
+# the training path at granite-3-2b's full width: the train phase at full
+# depth through launch.train (the train_4k sequence length; 4
+# microbatches, what default_microbatches gives on one card, passed
+# explicitly as the reference's train() defaults to 1)
+TRAIN = {"arch": "granite-3-2b", "steps": 4, "batch": 4, "seq": 4096,
+         "microbatches": 4, "peak": PEAK_BF16}
+# train:parity (float32) and train:checkpoint (bf16): full width, 2
+# layers, batch 4 × 256 tokens in 2 microbatches, seeded weights and
+# SyntheticLM batches; parity is the CPU tests' float32 measure (loss and
+# grad norm relative, every parameter, m and v by relative Frobenius
+# error per tensor)
+TRAIN_SMALL = {"n_layers": 2, "batch": 4, "seq": 256, "microbatches": 2,
+               "seed": 0, "tol": 1e-5}
+
+
+def _copy_state(state, device):
+    """A copy of a train state on ``device`` (the parameters stay
+    trainable)."""
+    import copy
+    return {"params": copy.deepcopy(state["params"]).to(device),
+            "m": {k: t.to(device, copy=True) for k, t in state["m"].items()},
+            "v": {k: t.to(device, copy=True) for k, t in state["v"].items()},
+            "step": state["step"].to(device, copy=True)}
+
+
+def _leaves(state):
+    """(name, tensor) of every leaf of a train state, in one order."""
+    out = [(f"params:{n}", p.detach())
+           for n, p in state["params"].named_parameters()]
+    for part in ("m", "v"):
+        out += [(f"{part}:{n}", t) for n, t in sorted(state[part].items())]
+    return out + [("step", state["step"])]
+
+
+def _bits(t):
+    import torch
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _differing(a, b) -> list:
+    """The names of the leaves where two train states differ in any bit."""
+    import torch
+    return [n for (n, x), (_, y) in zip(_leaves(a), _leaves(b))
+            if not (x.shape == y.shape and
+                    torch.equal(_bits(x), _bits(y.to(x.device))))]
+
+
+def _rel_errors(got, want) -> dict:
+    """Relative Frobenius error per leaf of ``got`` against ``want``
+    (float64 on ``got``'s device)."""
+    import torch
+    out = {}
+    for (n, x), (_, y) in zip(_leaves(got), _leaves(want)):
+        if n == "step":
+            continue
+        x = x.double()
+        y = y.to(x.device).double()
+        out[n] = float(torch.linalg.vector_norm(x - y)
+                       / torch.linalg.vector_norm(y))
+    return out
+
+
+def _train_batches(cfg, seq, batch, steps, seed, device):
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import upload
+    src = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+    return [upload(src.batch_at(i), device) for i in range(steps)]
+
+
+def _run_steps(state, batches, cfg, opt, microbatches, device) -> list:
+    """``train_step`` over the batches, each inside a ``train.step``
+    boundary (all threads: the backward runs on autograd's device
+    thread); per step its loss, grad norm (one counted read after the
+    step) and the syncs the boundary saw (None off CUDA)."""
+    import torch
+
+    from repro_torch.runtime.boundary import host_boundary
+    from repro_torch.train.steps import train_step
+    out = []
+    for b in batches:
+        with host_boundary("train.step", device, all_threads=True) as hb:
+            state, m = train_step(state, b, cfg, opt,
+                                  microbatches=microbatches)
+        with host_boundary("train.log", device) as hb_log:
+            loss, gnorm = (float(x) for x in hb_log.read(
+                torch.stack([m["loss"], m["grad_norm"]])))
+        out.append({"loss": loss, "grad_norm": gnorm,
+                    "step_syncs": hb.syncs, "log_syncs": hb_log.syncs,
+                    "log_reads": hb_log.reads})
+    return out
+
+
+def check_step_syncs(log, label):
+    """No host sync inside any train step (nor in a batch upload, where
+    the log has one), and each step's log read's syncs all counted."""
+    for i, r in enumerate(log):
+        check(r["step_syncs"] == 0, f"{label}: step {i} made "
+                                    f"{r['step_syncs']} host syncs inside "
+                                    f"the train step")
+        check(r.get("batch_syncs", 0) == 0,
+              f"{label}: step {i}'s batch upload made "
+              f"{r.get('batch_syncs')} host syncs")
+        check(r["log_syncs"] == r["log_reads"] == 1,
+              f"{label}: step {i}'s log read saw {r['log_syncs']} syncs "
+              f"against {r['log_reads']} counted reads")
+
+
+def phase_train_parity():
+    """granite-3-2b at full width, 2 layers, float32: two train steps on
+    the card and on the CPU from one initial state on the same batches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import OptConfig
+    from repro_torch.train.steps import init_train_state
+    p = TRAIN_SMALL
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), dtype="float32",
+                              n_layers=p["n_layers"])
+    opt = OptConfig()
+    cpu_dev = torch.device("cpu")
+    cpu = init_train_state(p["seed"], cfg, device=cpu_dev)
+    card = _copy_state(cpu, DEVICE)
+    batches = _train_batches(cfg, p["seq"], p["batch"], 2, p["seed"],
+                             cpu_dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    card_log = _run_steps(card, [{k: x.to(DEVICE) for k, x in b.items()}
+                                 for b in batches], cfg, opt,
+                          p["microbatches"], torch.device(DEVICE))
+    card_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    cpu_log = _run_steps(cpu, batches, cfg, opt, p["microbatches"], cpu_dev)
+    cpu_s = time.perf_counter() - t0
+    check(launches["flash_attention"] == 0 and
+          launches["flash_attention_f32"] == 0,
+          f"train:parity: the training route launched K4: {launches}")
+    check_step_syncs(card_log, "train:parity")
+    worst = {}
+    for key in ("loss", "grad_norm"):
+        worst[key] = max(abs(c[key] / w[key] - 1)
+                         for c, w in zip(card_log, cpu_log))
+        check(worst[key] <= p["tol"], f"train:parity: {key} card "
+              f"{[c[key] for c in card_log]} vs CPU "
+              f"{[w[key] for w in cpu_log]} beyond {p['tol']} relative")
+    errs = _rel_errors(card, cpu)
+    check(int(card["step"]) == int(cpu["step"]) == 2,
+          "train:parity: step is not 2 on both")
+    for part in ("params", "m", "v"):
+        name, err = max(((n, e) for n, e in errs.items()
+                         if n.startswith(part + ":")), key=lambda x: x[1])
+        worst[part] = err
+        check(err <= p["tol"], f"train:parity: {name} card vs CPU relative "
+                               f"Frobenius error {err} beyond {p['tol']}")
+    emit({"phase": "train:parity", "arch": TRAIN["arch"],
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "params": cfg.param_count(), "batch": p["batch"],
+          "seq": p["seq"], "microbatches": p["microbatches"],
+          "card_losses": [r["loss"] for r in card_log],
+          "cpu_losses": [r["loss"] for r in cpu_log],
+          "card_grad_norms": [r["grad_norm"] for r in card_log],
+          "worst_rel": worst, "tol": p["tol"],
+          "card_step_syncs": [r["step_syncs"] for r in card_log],
+          "launches": launches, "card_s": card_s, "cpu_s": cpu_s,
+          "phase_s": time.perf_counter() - t_phase})
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def train_split(cfg, state, batch, opt, microbatches):
+    """The device time of one train step (torch.profiler: busy, idle share,
+    kernel launches, matmul kernels by name), split into the blocked
+    attention, AdamW, the other matmuls and the rest.  The attention's
+    and AdamW's kernels share their names with others, so each is
+    profiled alone at the step's shapes: one layer's attention as the
+    step runs it per microbatch (two forwards under ``remat="full"`` —
+    one in the forward, one recomputed — and one backward), times layers
+    × microbatches, and one AdamW update with zero gradients; their
+    matmul kernels are taken out of the step's matmul group."""
+    import torch
+
+    from repro_torch.models.attention import blocked_flash_attention
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.steps import train_step
+    step = device_split(lambda: train_step(state, batch, cfg, opt,
+                                           microbatches=microbatches),
+                        trace=True)
+    b = batch["tokens"].shape[0] // microbatches
+    t = batch["tokens"].shape[1]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    q, k, v = (torch.randn((b, t, n, cfg.head_dim_), generator=gen,
+                           device=DEVICE, dtype=cfg.torch_dtype)
+               .requires_grad_()
+               for n in (cfg.n_heads_eff, cfg.n_kv_heads, cfg.n_kv_heads))
+    cot = torch.randn(q.shape, generator=gen, device=DEVICE,
+                      dtype=cfg.torch_dtype)
+
+    def attention():
+        with torch.no_grad():
+            blocked_flash_attention(q, k, v, cfg)
+        out = blocked_flash_attention(q, k, v, cfg)
+        torch.autograd.grad(out, (q, k, v), cot)
+
+    attention()                                     # warm
+    attn = device_split(attention, trace=True)
+    del q, k, v, cot
+    zeros = {n: torch.zeros_like(m) for n, m in state["m"].items()}
+    adamw = device_split(lambda: adamw_update(state["params"], zeros, state,
+                                              opt), trace=True)
+    del zeros
+    torch.cuda.empty_cache()
+    if any("error" in r for r in (step, attn, adamw)):
+        return {"step": step, "attention_layer": attn, "adamw": adamw}
+    calls = cfg.n_layers * microbatches
+    attention_ms = attn["device_busy_ms"] * calls
+    matmul_ms = step["groups_ms"]["matmul"] - \
+        attn["groups_ms"]["matmul"] * calls - adamw["groups_ms"]["matmul"]
+    adamw_ms = adamw["device_busy_ms"]
+    return {"step_busy_ms": step["device_busy_ms"],
+            "step_wall_ms": step["wall_ms"],
+            "device_idle_share": step["device_idle_share"],
+            "kernel_launches": step["kernel_launches"],
+            "split_ms": {"blocked_attention": attention_ms,
+                         "matmul": matmul_ms, "adamw": adamw_ms,
+                         "rest": step["device_busy_ms"] - attention_ms
+                         - matmul_ms - adamw_ms},
+            "attention_layer_ms": attn["device_busy_ms"],
+            "attention_layer_launches": attn["kernel_launches"],
+            "attention_layer_matmul_ms": attn["groups_ms"]["matmul"],
+            "adamw_launches": adamw["kernel_launches"],
+            "top_kernels": step["top_kernels"],
+            "matmul_kernel_names": step["matmul_kernel_names"]}
+
+
+def phase_train():
+    """``launch.train.train`` at granite-3-2b's full width and depth,
+    bf16, with the launch counts set to 0 just before and read just
+    after; then one more step profiled (``train_split``)."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train, upload
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import OptConfig
+    p = TRAIN
+    t_phase = time.perf_counter()
+    cfg = get_config(p["arch"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train(p["arch"], steps=p["steps"], global_batch=p["batch"],
+                seq_len=p["seq"], microbatches=p["microbatches"],
+                device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log, state = out["log"], out["state"]
+    check(launches["flash_attention"] == 0 and
+          launches["flash_attention_f32"] == 0,
+          f"train: the training route launched K4: {launches}")
+    check(len(log) == p["steps"] and int(state["step"]) == p["steps"],
+          f"train: {len(log)} steps logged, step {int(state['step'])}")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in log), f"train: a non-finite loss or grad norm: {log}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(log[0]["loss"] - ln_v) <= 1.0,
+          f"train: first loss {log[0]['loss']} not within 1.0 of ln V = "
+          f"{ln_v}")
+    check_step_syncs(log, "train")
+    # m nonzero in every tensor; every matrix (projections, embeddings)
+    # moved from its seeded start (the norm scales need not: an update of
+    # lr ≈ 3e-4 is under half a bf16 spacing at 1.0)
+    start = init_params(0, cfg, device=DEVICE)
+    named = dict(state["params"].named_parameters())
+    mats = [n for n, p0 in start.named_parameters() if p0.dim() >= 2]
+    moved = torch.stack([torch.any(named[n].detach() != p0)
+                         for n, p0 in start.named_parameters()
+                         if p0.dim() >= 2]).cpu()
+    m_nonzero = torch.stack([torch.any(t != 0)
+                             for t in state["m"].values()]).cpu()
+    del start
+    check(bool(moved.all()), f"train: matrices that did not move: "
+          f"{[n for n, ok in zip(mats, moved.tolist()) if not ok]}")
+    check(bool(m_nonzero.all()), "train: an all-zero m tensor")
+    times = [r["seconds"] for r in log]
+    step_s = statistics.median(times[1:])
+    tokens = p["batch"] * p["seq"]
+    flops = cfg.model_flops_per_token("train") * tokens
+    # one more step, profiled (its own batch: the pipeline's next)
+    opt = OptConfig(total_steps=p["steps"],
+                    warmup_steps=max(1, p["steps"] // 10))
+    batch = upload(SyntheticLM(cfg.vocab_size, p["seq"], p["batch"])
+                   .batch_at(p["steps"]), torch.device(DEVICE))
+    t_split = time.perf_counter()
+    split = train_split(cfg, state, batch, opt, p["microbatches"])
+    split_s = time.perf_counter() - t_split
+    emit({"phase": "train", "arch": p["arch"], "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+          "params": cfg.param_count(), "batch": p["batch"],
+          "seq": p["seq"], "microbatches": p["microbatches"],
+          "losses": [r["loss"] for r in log],
+          "grad_norms": [r["grad_norm"] for r in log],
+          "lrs": [r["lr"] for r in log], "step_s": times,
+          "median_step_s_2_to_4": step_s, "tokens_per_s": tokens / step_s,
+          "mfu": flops / step_s / p["peak"],
+          "model_flops_per_step": flops,
+          "max_memory_allocated": peak, "train_call_s": wall,
+          "step_syncs": [r["step_syncs"] for r in log],
+          "launches": launches, "device_split_one_step": split,
+          "split_s": split_s, "phase_s": time.perf_counter() - t_phase})
+    del out, state, batch
+    torch.cuda.empty_cache()
+
+
+def phase_train_checkpoint():
+    """The train:parity shape in bf16: 2 steps, ``save_async``, 2 more
+    (A); a fresh state restored from step 2 and 2 more (B); the same 4
+    steps uninterrupted (C), for the card's spread."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import MESH_SHAPE
+    from repro_torch.train import OptConfig
+    from repro_torch.train.steps import init_train_state
+    p = TRAIN_SMALL
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=p["n_layers"])
+    opt = OptConfig(total_steps=4, warmup_steps=1)
+    batches = _train_batches(cfg, p["seq"], p["batch"], 4, p["seed"], dev)
+    mb = p["microbatches"]
+    ckpt_dir = ROOT / "build" / "train_checkpoint"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(ckpt_dir, keep=1)
+        a = init_train_state(p["seed"], cfg, device=dev)
+        a_log = _run_steps(a, batches[:2], cfg, opt, mb, dev)
+        saved = _copy_state(a, dev)
+        t0 = time.perf_counter()
+        mgr.save_async(2, a, mesh_shape=MESH_SHAPE)
+        snapshot_s = time.perf_counter() - t0
+        a_log += _run_steps(a, batches[2:], cfg, opt, mb, dev)
+        mgr.wait()
+        b = init_train_state(p["seed"] + 1, cfg, device=dev)
+        t0 = time.perf_counter()
+        mgr.restore(mgr.latest_step(), b)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    differ = _differing(b, saved)
+    check(not differ, f"train:checkpoint: the restored state differs from "
+                      f"the saved one at {differ[:4]}")
+    del saved
+    b_log = _run_steps(b, batches[2:], cfg, opt, mb, dev)
+    c = init_train_state(p["seed"], cfg, device=dev)
+    c_log = _run_steps(c, batches, cfg, opt, mb, dev)
+    for label, log in (("A", a_log), ("B", b_log), ("C", c_log)):
+        check_step_syncs(log, f"train:checkpoint run {label}")
+    a_losses = [r["loss"] for r in a_log]
+    b_losses = [r["loss"] for r in b_log]
+    c_losses = [r["loss"] for r in c_log]
+    ab, ac = _differing(b, a), _differing(c, a)
+    if not ab and b_losses == a_losses[2:]:
+        mode = "bit for bit"
+    else:
+        # the card's own spread: two uninterrupted runs
+        mode = "within the spread of two uninterrupted runs"
+        spread, diff = _rel_errors(c, a), _rel_errors(b, a)
+        worst = {n: (diff[n], spread[n]) for n in diff
+                 if diff[n] > spread[n]}
+        check(not worst, f"train:checkpoint: resumed run beyond the spread "
+                         f"of two uninterrupted runs at {list(worst)[:4]}")
+        check(all(abs(x - y) <= abs(z - y) for x, y, z in
+                  zip(b_losses, a_losses[2:], c_losses[2:])),
+              f"train:checkpoint: resumed losses {b_losses} vs {a_losses} "
+              f"beyond the spread of {c_losses}")
+    emit({"phase": "train:checkpoint", "arch": TRAIN["arch"],
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "restored_bit_for_bit": True, "resumed": mode,
+          "a_losses": a_losses, "b_losses": b_losses, "c_losses": c_losses,
+          "a_b_leaves_differing": len(ab), "a_c_leaves_differing": len(ac),
+          "snapshot_s": snapshot_s, "restore_s": restore_s,
+          "phase_s": time.perf_counter() - t_phase})
+    del a, b, c, batches
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
@@ -3124,6 +3592,9 @@ def main(argv) -> int:
                                    forms)
     k4, k4_worst = phase_flash()
     serve_launches, f32_launches = phase_serve(k4["serve"]["ms"])
+    phase_train_parity()
+    phase_train()
+    phase_train_checkpoint()
     kernels = []
     for rec, launches, name, source, replaces in (
             (k1, main_run["launches"], "qap_objective",

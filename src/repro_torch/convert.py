@@ -18,6 +18,8 @@ device.  The port never imports ``repro``: the caller does the
     perm  = convert.perm(np.asarray(perm_ref), "cuda")
     model = convert.lm_params(jax.tree.map(np.asarray, params_ref), cfg,
                               "cuda")
+    state = convert.train_state(jax.tree.map(np.asarray, state_ref), cfg,
+                                "cuda")
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from .core.spec import MappingSpec, PlanSpec, TopologySpec
 from .runtime.device import resolve_device
 
 __all__ = ["device_graph", "graph", "lm_params", "pairs", "perm",
-           "plan_spec", "spec", "topology", "topology_from_matrix"]
+           "plan_spec", "spec", "topology", "topology_from_matrix",
+           "train_state"]
 
 
 def spec(d: dict) -> MappingSpec:
@@ -130,3 +133,24 @@ def lm_params(tree: dict, cfg, device=None):
                         for k, a in src["ffn"].items()}}
 
     return Transformer(cfg, emb, [layer(i) for i in range(cfg.n_layers)])
+
+
+def train_state(tree: dict, cfg, device=None) -> dict:
+    """The JAX package's ``init_train_state`` tree, as numpy arrays
+    (``params``, ``m`` and ``v`` stacked over n_periods, ``step``) → the
+    port's train state on ``device``: the parameters trainable, ``m`` and
+    ``v`` keyed by the parameters' names, the same layer mapping as
+    :func:`lm_params`."""
+    import torch
+    dev = resolve_device(device)
+    params = lm_params(tree["params"], cfg, dev)
+    params.requires_grad_(True)
+
+    def moments(t):
+        return {k: p.detach() for k, p in
+                lm_params(t, cfg, dev).named_parameters()}
+
+    return {"params": params, "m": moments(tree["m"]),
+            "v": moments(tree["v"]),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32).to(dev)}

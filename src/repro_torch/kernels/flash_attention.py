@@ -26,6 +26,12 @@ On CPU tensors it runs the plain PyTorch version
 online softmax in float32, p cast to v's type before p·v.  The TPU
 wrapper's ``q_block``/``kv_block``/``interpret`` arguments have no
 counterpart: the kernels' tiles are fixed and masked at the ragged edge.
+
+K4 is forward only, and writes into a buffer autograd knows nothing of:
+under grad mode with q, k or v requiring grad the wrapper raises on
+both devices, rather than return a tensor through which ``wq``, ``wk``
+and ``wv`` would get no gradient (training attends through
+``models.attention.blocked_flash_attention``).
 """
 
 from __future__ import annotations
@@ -96,6 +102,14 @@ def flash_attention_kernel(q, k, v, *, window: int = 0):
     through the float32 one), the plain version for CPU tensors."""
     import torch
     _check(q, k, v, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_kernel: K4 has no backward, and q, k or v "
+            "requires grad under grad mode; train through "
+            "models.attention.blocked_flash_attention (attention_block("
+            "..., train=True)), or call K4 under torch.no_grad() / "
+            "torch.inference_mode()")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, window=window)
     b, t, h, hd = q.shape

@@ -1,5 +1,6 @@
-"""GQA attention: K4 flash attention for prefill, cached decode step — the
-JAX package's ``models/attention.py`` on torch tensors.
+"""GQA attention: K4 flash attention for prefill, a blocked attention in
+torch ops for training, cached decode step — the JAX package's
+``models/attention.py`` on torch tensors.
 
 Layouts are the JAX package's: projections wq (d, H, hd), wk and wv
 (d, KV, hd), wo (H, hd, d); q (B, T, H, hd); k, v and the caches
@@ -10,6 +11,12 @@ Layouts are the JAX package's: projections wq (d, H, hd), wk and wv
     model's prefill; on one card there is no mesh, so the JAX package's
     pure-JAX blocked ``flash_attention`` and its sharded Pallas branch
     collapse into this one core (CPU tensors take K4's plain version),
+  * training (``attention_block(..., train=True)``) differentiates
+    through :func:`blocked_flash_attention`, a torch-ops twin of the
+    JAX package's blocked ``flash_attention`` — the core the reference
+    trains through (its Pallas branch needs a flash mesh, and the JAX
+    package has no backward kernel); K4 has no backward and raises
+    under autograd,
   * decode attends a (B, 1) query against the cache with torch ops, as
     the JAX package's einsums do; ``step`` is a host int, so choosing the
     cache slot costs no sync, and the cache is updated in place (the JAX
@@ -71,10 +78,108 @@ def flash_attention(q, k, v, cfg, q_offset: int = 0):
                                   v.contiguous(), window=cfg.sliding_window)
 
 
-def attention_block(params, x, positions, cfg):
-    """Full attention sub-layer for prefill: qkv → K4 → out proj."""
+def _blocks(t: int, s_len: int, cfg):
+    """The reference's static blocking: (qb, kb, n_kb, window, span) —
+    q blocks of ``cfg.q_block`` halved until they divide T; with a
+    sliding window shorter than the keys, a static span of window + qb
+    keys per q block in kv blocks dividing it, else kv blocks of
+    ``cfg.kv_block`` dividing S."""
+    qb = min(cfg.q_block, t)
+    while t % qb:
+        qb //= 2
+    window = cfg.sliding_window
+    if window and window < s_len:
+        span = window + qb
+        kb = min(cfg.kv_block, span)
+        while span % kb:
+            kb //= 2
+        return qb, kb, span // kb, window, span
+    kb = min(cfg.kv_block, s_len)
+    while s_len % kb:
+        kb //= 2
+    return qb, kb, s_len // kb, 0, s_len
+
+
+def blocked_flash_attention(q, k, v, cfg):
+    """Causal (optionally sliding-window) blocked attention in torch ops,
+    differentiable through autograd: the JAX package's
+    ``flash_attention`` (``models/attention.py:75``, ``_online_block``
+    ``:61``) for self-attention (q_offset 0).
+
+    q: (B, T, H, hd); k, v: (B, T, KV, hd).  Returns (B, T, H, hd) in q's
+    type.  Each q block of ``qb`` rows runs an online softmax over
+    ``n_kb`` kv blocks of ``kb`` keys, as the reference does: scores
+    q·kᵀ in the inputs' type, then float32 and scaled, masked −1e30;
+    running max, sum and accumulator in float32; p cast to v's type
+    before p·v.  Every q block visits every kv block of its span, fully
+    masked ones included.  With a window, q block i's span starts at
+    max(0, (i + 1)·qb − span); a kv block that would run past the keys
+    reads the last ``kb`` keys, while its mask keeps the unclamped
+    positions (the reference's ``dynamic_slice`` clamps the slice, not
+    the positions).
+
+    The q blocks run side by side (a block axis n): each block's
+    arithmetic is the reference's, and one kv step is one launch of each
+    op for all q blocks — n_kb steps a call."""
+    b, t, h, hd = q.shape
+    s_len, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5
+    qb, kb, n_kb, window, span = _blocks(t, s_len, cfg)
+    n_qb = t // qb
+    dev = q.device
+    f32 = torch.float32
+
+    # (B, KV, G, n, qb, hd) grouped layout; k and v (B, KV, S, hd)
+    qg = q.reshape(b, n_qb, qb, kvh, g, hd).permute(0, 3, 4, 1, 2, 5)
+    kg = k.permute(0, 2, 1, 3)
+    vg = v.permute(0, 2, 1, 3)
+    # each q block's span starts at max(0, (i + 1)·qb − span), 0 without
+    # a window (span = S); as host ints for the slices, on the device for
+    # the masks
+    starts = [max(0, (i + 1) * qb - span) for i in range(n_qb)]
+    start_pos = torch.clamp(torch.arange(1, n_qb + 1, device=dev) * qb
+                            - span, min=0)
+    q_pos = torch.arange(t, device=dev).reshape(n_qb, qb)
+
+    m = torch.full((b, kvh, g, n_qb, qb), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((b, kvh, g, n_qb, qb), dtype=f32, device=dev)
+    acc = torch.zeros((b, kvh, g, n_qb, qb, hd), dtype=f32, device=dev)
+    for ki in range(n_kb):
+        firsts = [min(s + ki * kb, s_len - kb) for s in starts]
+        kblk = torch.stack([kg[:, :, f:f + kb] for f in firsts], dim=2)
+        vblk = torch.stack([vg[:, :, f:f + kb] for f in firsts], dim=2)
+        # (n, kb) positions from the unclamped starts
+        k_pos = (start_pos + ki * kb)[:, None] + torch.arange(kb,
+                                                              device=dev)
+        diff = q_pos[:, :, None] - k_pos[:, None, :]       # (n, qb, kb)
+        mask = diff >= 0
+        if window:
+            mask &= diff < window
+        s = torch.einsum("bkgnqh,bknth->bkgnqt", qg, kblk).to(f32) * scale
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgnqt,bknth->bkgnqh", p.to(v.dtype), vblk).to(f32)
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    # (B, KV, G, n, qb, hd) -> (B, T, H, hd)
+    return out.permute(0, 3, 4, 1, 2, 5).reshape(b, t, h, hd)
+
+
+def attention_block(params, x, positions, cfg, train: bool = False):
+    """Full attention sub-layer: qkv → attention → out proj.  Prefill
+    (``train`` False) attends through K4; training (``train`` True)
+    through :func:`blocked_flash_attention`, which autograd can
+    follow."""
     q, k, v = _qkv(params, x, positions, cfg)
-    o = flash_attention(q, k, v, cfg)
+    if train:
+        o = blocked_flash_attention(q, k, v, cfg)
+    else:
+        o = flash_attention(q, k, v, cfg)
     return torch.einsum("bthk,hkd->btd", o, params["wo"])
 
 

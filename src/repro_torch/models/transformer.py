@@ -1,5 +1,5 @@
 """Dense decoder: embeddings + a list of (attention, MLP) layers + LM head
-— the serving half of the JAX package's ``models/transformer.py``.
+— the JAX package's ``models/transformer.py`` for dense decoders.
 
 The JAX model stacks each period position's parameters over n_periods
 and scans over them; the port holds one :class:`DecoderLayer` per layer
@@ -10,14 +10,34 @@ port is period i // p, position i % p of the JAX model
 Only the (attn, mlp) layer kind is ported: Mamba, RWKV and MoE layers
 and modality frontends raise ``NotImplementedError`` (ROADMAP item 7).
 
+Parameters are frozen (``requires_grad=False``) as built; serving runs
+them under ``inference_mode``.  ``train.steps.init_train_state`` makes a
+training copy's parameters trainable, and ``forward(..., train=True)``
+is the training forward: attention through the blocked twin
+(``attention.blocked_flash_attention``, which autograd follows) and each
+layer rematerialised as ``cfg.remat`` says (a period is one layer in a
+dense decoder):
+
+  "full" — ``torch.utils.checkpoint.checkpoint`` around each layer
+           (non-reentrant): only the layer's input is kept, the layer
+           runs again in the backward;
+  "dots" — a selective checkpoint around each layer that keeps the
+           outputs of the projection matmuls and recomputes the rest,
+           the counterpart of ``dots_with_no_batch_dims_saveable``;
+  "none" — autograd keeps every activation.
+
 Decode caches are a list with one ``{"attn": {"k", "v"}}`` per layer;
 :func:`decode_step` writes into them in place.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..runtime.device import resolve_device
 from .attention import (_qkv, attention_block, decode_attention_block,
@@ -103,21 +123,59 @@ def _positions(b: int, t: int, device):
     return torch.arange(t, device=device).expand(b, t)
 
 
-def _layer_apply(p, h, positions, cfg):
-    h = h + attention_block(p.mixer, rms_norm(h, p.norm1), positions, cfg)
+def _layer_apply(p, h, positions, cfg, train: bool = False):
+    h = h + attention_block(p.mixer, rms_norm(h, p.norm1), positions, cfg,
+                            train=train)
     return h + mlp(p.ffn, rms_norm(h, p.norm2), cfg.mlp_type)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the projection matmuls' outputs, recompute the rest.  The
+    projections reach the dispatcher as ``mm`` (``x @ w``) or as a
+    ``bmm`` of one batch (an einsum without batch axes); the attention's
+    einsums are ``bmm`` over B·KV·q blocks, recomputed like the JAX
+    policy's batched dots (a call with B·KV·blocks = 1 would keep them
+    too: more memory, the same values)."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
+def _train_layer(p, h, positions, cfg):
+    """One layer of the training forward under ``cfg.remat``."""
+    if cfg.remat == "none":
+        return _layer_apply(p, h, positions, cfg, train=True)
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"{cfg.name}: remat {cfg.remat!r}; choose none, "
+                         f"dots or full")
+    # the layer draws no random numbers: no RNG state to keep
+    extra = {"context_fn": _DOTS} if cfg.remat == "dots" else {}
+    return checkpoint(_layer_apply, p, h, positions, cfg, True,
+                      use_reentrant=False, preserve_rng_state=False,
+                      **extra)
+
+
 # --------------------------------------------------------------- forward
-def forward(params, tokens, cfg, logits_last_only: bool = False):
-    """Prefill forward.  tokens: (B, T) int.  ``logits_last_only``: the
-    projection runs on the last position only.  Returns (logits (B, T,
-    V_padded), aux_loss 0)."""
+def forward(params, tokens, cfg, frontend=None,
+            logits_last_only: bool = False, train: bool = False):
+    """Train/prefill forward.  tokens: (B, T) int.  ``logits_last_only``:
+    the projection runs on the last position only.  ``train``: the
+    training forward (blocked attention under autograd, ``cfg.remat``);
+    otherwise attention is K4.  A modality ``frontend`` is not ported.
+    Returns (logits (B, T, V_padded), aux_loss 0)."""
+    if frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: modality frontends wait for ROADMAP item 7")
     h = embed_tokens(params.embeddings, tokens)
     b, t, _ = h.shape
     positions = _positions(b, t, h.device)
     for p in params.layers:
-        h = _layer_apply(p, h, positions, cfg)
+        h = (_train_layer(p, h, positions, cfg) if train
+             else _layer_apply(p, h, positions, cfg))
     if logits_last_only:
         h = h[:, -1:]
     logits = lm_logits(params.embeddings, h, cfg.vocab_size)

@@ -36,6 +36,13 @@ is, though the debug mode and the warnings machinery are process-global:
     reach the hook (not once per source line); both go when the last
     scope closes.
 
+A scope opened with ``all_threads=True`` also takes the sync warnings of
+threads that have no open scope of their own, while it is the innermost
+such scope in the process: a training step's backward runs on the
+autograd engine's device thread, and the Python it runs there (a
+checkpointed layer's recomputed forward, a custom backward) warns on
+that thread.
+
 So two threads may hold scopes at once, in any order of opening and
 closing, and each counts its own syncs.  Nested scopes on one thread
 count a sync in the innermost CUDA scope.  While a scope is open
@@ -62,6 +69,7 @@ _LOCK = threading.Lock()
 _LOCAL = threading.local()      # .stack: this thread's open CUDA scopes
 _open = 0                       # CUDA scopes open in the process
 _saved = None                   # (mode, hook, filter) from before the first
+_ALL: list = []                 # open all-thread CUDA scopes, innermost last
 
 
 class Boundary:
@@ -88,21 +96,24 @@ def _stack() -> list:
 
 def _router(prev):
     """The hook installed while scopes are open: a sync warning goes to
-    the raising thread's innermost open scope, anything else to
+    the raising thread's innermost open scope, or, from a thread with
+    none, to the innermost all-thread scope; anything else to
     ``prev``."""
     def showwarning(message, category, filename, lineno, file=None,
                     line=None):
-        stack = getattr(_LOCAL, "stack", None)
-        if stack and _SYNC in str(message).lower():
-            stack[-1].syncs += 1
-            return
+        if _SYNC in str(message).lower():
+            scopes = getattr(_LOCAL, "stack", None) or _ALL[-1:]
+            if scopes:
+                scopes[-1].syncs += 1
+                return
         prev(message, category, filename, lineno, file, line)
     return showwarning
 
 
-def _open_scope(b: Boundary) -> None:
+def _open_scope(b: Boundary, all_threads: bool) -> None:
     global _open, _saved
     import torch
+    b.syncs = 0
     with _LOCK:
         if _open == 0:
             mode = torch.cuda.get_sync_debug_mode()
@@ -112,7 +123,8 @@ def _open_scope(b: Boundary) -> None:
             warnings.showwarning = _router(hook)
             torch.cuda.set_sync_debug_mode("warn")
         _open += 1
-    b.syncs = 0
+        if all_threads:
+            _ALL.append(b)
     _stack().append(b)
 
 
@@ -121,6 +133,8 @@ def _close_scope(b: Boundary) -> None:
     import torch
     _stack().remove(b)
     with _LOCK:
+        if b in _ALL:
+            _ALL.remove(b)
         _open -= 1
         if _open == 0:
             mode, hook, flt = _saved
@@ -132,17 +146,18 @@ def _close_scope(b: Boundary) -> None:
 
 
 @contextlib.contextmanager
-def host_boundary(tag: str, device=None):
+def host_boundary(tag: str, device=None, all_threads: bool = False):
     """Mark a deliberate host<->device crossing named ``tag`` (in the
     style of a metrics key: ``"engine.sweeps"``, ``"plan.objective"``)
     and yield its :class:`Boundary`.  With a CUDA ``device`` the syncs
     inside the scope, on this thread, are counted through PyTorch's sync
-    debug mode."""
+    debug mode; with ``all_threads`` also those of threads without a
+    scope of their own (see module docstring)."""
     b = Boundary(tag)
     if device is None or getattr(device, "type", device) != "cuda":
         yield b
         return
-    _open_scope(b)
+    _open_scope(b, all_threads)
     try:
         yield b
     finally:

@@ -11,7 +11,8 @@ mode is back at its start value once both have closed, and no other
 warning is swallowed — a sync warning from a thread outside every scope,
 another kind of warning from inside one, and a warning raised after both
 closed all reach the caller.  Nested scopes on one thread count a sync
-in the innermost CUDA scope, as before.  The card's counterpart (two
+in the innermost CUDA scope, as before.  An all-thread scope also takes
+the syncs of threads without a scope.  The card's counterpart (two
 device-engine ``MappingService`` s at once) is in
 ``tests/test_torch_card.py``.
 """
@@ -170,6 +171,41 @@ def test_scope_left_by_an_exception_restores_everything(mode):
     assert warnings.showwarning is hook
     assert warnings.filters == filters
     assert boundary._open == 0
+
+
+def test_all_thread_scope_takes_unscoped_threads_syncs(mode):
+    """While an all-thread scope is open, a sync from a thread with no
+    scope of its own (as the autograd engine's device thread, which runs
+    a training step's backward) is charged to it; a thread with its own
+    scope keeps its syncs; once the all-thread scope has closed, an
+    unscoped thread's sync reaches the caller again."""
+    def in_thread(fn):
+        t = threading.Thread(target=fn)
+        t.start()
+        t.join(timeout=30)
+        assert not t.is_alive()
+
+    own = {}
+
+    def scoped():
+        with host_boundary("own", "cuda") as hb:
+            sync(3)
+        own["hb"] = hb
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with host_boundary("train.step", "cuda", all_threads=True) as step:
+            sync(1)
+            in_thread(lambda: sync(2))
+            in_thread(scoped)
+            with host_boundary("inner", "cuda") as inner:   # this thread's
+                in_thread(lambda: sync(1))
+                sync(1)
+        assert (step.syncs, inner.syncs, own["hb"].syncs) == (4, 1, 3)
+        assert _synced(caught) == 0
+        in_thread(lambda: sync(1))
+        assert _synced(caught) == 1
+    assert boundary._ALL == [] and boundary._open == 0 and mode[0] == 0
 
 
 def test_host_scope_counts_reads_and_no_syncs():

@@ -1001,3 +1001,144 @@ def test_two_services_count_their_own_syncs(cuda):
     spans = {n: [(a, b) for m, a, b, _ in loops if m == n] for n in names}
     one, two = spans.values()
     assert any(a0 < b1 and a1 < b0 for a0, b0 in one for a1, b1 in two)
+
+
+# ---------------------------------------------------------------- training
+# the CPU tests' float32 measure (tests/test_torch_train.py) and K4's
+# float32 tolerance
+TRAIN_TOL = 1e-5
+TRAIN_ATTN_TOL = 2e-5
+
+
+def _train_state_on(state, device):
+    import copy
+    return {"params": copy.deepcopy(state["params"]).to(device),
+            "m": {k: t.to(device) for k, t in state["m"].items()},
+            "v": {k: t.to(device) for k, t in state["v"].items()},
+            "step": state["step"].to(device)}
+
+
+def _rel_fro(got, want):
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def test_train_step_on_card_equals_cpu(cuda):
+    """The smoke granite config at float32: two ``train_step`` calls (4 ×
+    128 tokens, 2 microbatches) on the card and on the CPU from one
+    initial state: losses and grad norms within 1e-5 relative, every
+    parameter, m and v within 1e-5 relative Frobenius error per tensor
+    (``chip_smoke.py``'s train:parity measure); K4 launched 0 times and
+    no host sync inside a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.boundary import host_boundary
+    from repro_torch.train import OptConfig
+    from repro_torch.train.steps import init_train_state, train_step
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"),
+                              dtype="float32")
+    cpu = init_train_state(0, cfg, device="cpu")
+    card = _train_state_on(cpu, cuda)
+    src = SyntheticLM(cfg.vocab_size, 128, 4, seed=0)
+    before = _flash_launches()
+    for i in range(2):
+        batch = {k: torch.from_numpy(v) for k, v in src.batch_at(i).items()}
+        on_card = {k: v.to(cuda) for k, v in batch.items()}
+        _, want = train_step(cpu, batch, cfg, OptConfig(), microbatches=2)
+        with host_boundary("train.step", cuda, all_threads=True) as hb:
+            _, got = train_step(card, on_card, cfg, OptConfig(),
+                                microbatches=2)
+        assert hb.syncs == 0
+        for key in ("loss", "grad_norm"):
+            assert abs(float(got[key]) / float(want[key]) - 1) <= TRAIN_TOL
+    assert _flash_launches() == before
+    assert int(card["step"]) == 2
+    cpu_params = dict(cpu["params"].named_parameters())
+    for name, p in card["params"].named_parameters():
+        assert _rel_fro(p, cpu_params[name]) <= TRAIN_TOL, name
+    for part in ("m", "v"):
+        for name, t in card[part].items():
+            assert _rel_fro(t, cpu[part][name]) <= TRAIN_TOL, (part, name)
+
+
+@pytest.mark.parametrize("arch,b,t", [("granite-3-2b", 2, 256),
+                                      ("granite-3-2b", 2, 96),
+                                      ("starcoder2-7b", 2, 256),
+                                      ("granite-3-2b-full", 1, 1024)])
+def test_blocked_train_attention_equals_k4_f32(cuda, arch, b, t):
+    """The blocked training attention's forward against K4's float32
+    route within K4's 2e-5, at the smoke configs' blocks (64) and at
+    granite-3-2b's full heads and blocks (32/8 × 64, q 512, kv 1024)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.attention import blocked_flash_attention
+    cfg = (get_config("granite-3-2b") if arch.endswith("-full")
+           else get_smoke_config(arch))
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    q, k, v = (torch.randn((b, t, n, cfg.head_dim_), generator=gen,
+                           device=cuda)
+               for n in (cfg.n_heads_eff, cfg.n_kv_heads, cfg.n_kv_heads))
+    before = _flash_launches()
+    with torch.no_grad():
+        got = blocked_flash_attention(q, k, v, cfg)
+    assert _flash_launches() == before
+    want = flash_attention_kernel(q, k, v, window=cfg.sliding_window)
+    assert float((got - want).abs().max()) <= TRAIN_ATTN_TOL
+
+
+def test_train_k4_raises_under_autograd(cuda):
+    """K4 on the card raises under grad mode when q, k or v requires
+    grad (its output would carry no gradient to wq, wk, wv), launches
+    nothing, and runs under no_grad."""
+    q = torch.randn((1, 128, 4, 64), device=cuda)
+    k = torch.randn((1, 128, 2, 64), device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kk = q.to(dtype).requires_grad_(), k.to(dtype)
+        before = _flash_launches()
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention_kernel(qq, kk, kk)
+        assert _flash_launches() == before
+        with torch.no_grad():
+            flash_attention_kernel(qq, kk, kk)
+        assert sum(_flash_launches()) == sum(before) + 1
+
+
+def test_train_step_scope_counts_a_sync_in_backward(cuda):
+    """The backward runs on the autograd engine's device thread.  A sync
+    there — in Python (a custom backward, as a checkpointed layer's
+    recomputed forward runs) or in a C++ backward op (the boolean-mask
+    index's ``index_put_``) — is charged to the caller's all-thread
+    ``train.step`` scope, so "0 syncs inside each step" covers the
+    backward; a thread-local scope misses the Python one."""
+    from repro_torch.runtime.boundary import host_boundary
+
+    class Sync(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            g.sum().item()
+            return g
+
+    x = torch.ones(4, device=cuda, requires_grad=True)
+    with host_boundary("train.step", cuda, all_threads=True) as hb:
+        torch.autograd.grad(Sync.apply(x).sum(), x)
+    assert hb.syncs >= 1
+    with host_boundary("train.step", cuda) as local:
+        torch.autograd.grad(Sync.apply(x).sum(), x)
+    assert local.syncs == 0
+    mask = torch.tensor([True, False, True, False], device=cuda)
+    y = x[mask]                                  # its forward syncs here
+    with host_boundary("train.step", cuda, all_threads=True) as hb:
+        torch.autograd.grad(y.sum(), x)
+    assert hb.syncs >= 1
+    with host_boundary("train.step", cuda, all_threads=True) as hb:
+        torch.autograd.grad((x.clone() * 2).sum(), x)
+    assert hb.syncs == 0

@@ -1,6 +1,7 @@
 """The PyTorch/CUDA port imports neither jax nor any module of the JAX
-package.  Checked in a fresh interpreter, because this test process has
-both loaded already (tests/conftest.py imports jax)."""
+package, nor ``ml_dtypes`` (the card's machine has none).  Checked in a
+fresh interpreter, because this test process has all three loaded
+already (tests/conftest.py imports jax)."""
 
 import json
 import os
@@ -18,7 +19,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules
-                if k in ("jax", "repro") or k.startswith(("jax.", "repro.")))
+                if k in ("jax", "repro", "ml_dtypes")
+                or k.startswith(("jax.", "repro.", "ml_dtypes.")))
 print(json.dumps({"modules": len(names), "names": names,
                   "leaked": leaked}))
 """
@@ -45,5 +47,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.runtime.fault_tolerance",
             "repro_torch.monitor.loop", "repro_torch.cli.remap_watch",
             "repro_torch.launch.mesh",
-            "repro_torch.launch.specs"} <= set(report["names"])
+            "repro_torch.launch.specs",
+            "repro_torch.train.loss", "repro_torch.train.optimizer",
+            "repro_torch.train.compression", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.checkpoint",
+            "repro_torch.launch.train"} <= set(report["names"])
     assert report["leaked"] == [], f"repro_torch pulled in {report}"
