@@ -42,6 +42,17 @@ one JSON line after each, failing loudly on the first fault:
               single launch and to the stacked launch of the graph
               copied once a lane; the device time per launch beside the
               8 single launches and the stacked launch.
+3b. lint   — ``viem lint`` (``repro_torch.staticcheck``) on
+              ``src/repro_torch``: 0 active and 0 unjustified findings;
+              then its runtime audit on the card (``--runtime-audit
+              --device cuda``): every registered construction on the five
+              16-PE machines through ``execute``, ``execute_batch`` (2
+              lanes) and the portfolio's shared-graph lanes under an op
+              recorder and PyTorch's sync debug mode, every sync a
+              counted read or a named upload, no copy between devices
+              inside a counted loop, no floating intermediate off the
+              plan's accumulator dtype; combos a construction cannot run
+              are skipped, none may fail.
 4. portfolio — ``Mapper(4:16:64 / 1:10:100, multilevel=MultilevelSpec(),
               preconfiguration="eco", portfolio=PortfolioSpec()).map(
               grid3d(16, 16, 16))``: 8 lanes constructed at n = 512 and
@@ -200,7 +211,11 @@ one JSON line after each, failing loudly on the first fault:
               yardstick; the port never calls it) beside the bound; a
               float32 record's bound is one TF32 pass on the tensor cores,
               with the 3xTF32 split's (three passes) and the CUDA cores'
-              float32 bound beside it.
+              float32 bound beside it.  Then FLASH_REPEAT: the float32
+              route at the granite smoke prefill's shape (q (2, 96, 4,
+              32): 3 kv tiles through the 2-stage ring, whose refill
+              runs) 256 times on fresh randn inputs, every launch within
+              FLASH_F32_TOL of the plain version.
 18. serve   — ``serve("granite-3-8b", batch=4, prompt_len=2048, gen=32)``
               at the full published config (40 layers, random weights)
               with the launch counts set to 0 just before and read just
@@ -262,7 +277,7 @@ timed burst); before it a line with the whole run's seconds and one
 with the card's name and power limit; the last is ``{"ok": true,
 "device": {...}}``.  Without a card, or outside a checkout, it exits
 non-zero and prints no result.  ``--stop-after
-build|kernels|portfolio|remap|service`` runs the phases up to that one
+build|kernels|lint|portfolio|remap|service`` runs the phases up to that one
 (portfolio: through portfolio:cpu; remap: through remap:bench; service:
 through placement) and stops, with neither line.
 """
@@ -2731,6 +2746,9 @@ FLASH_SMALL = {"ragged": (2, 333, 8, 2, 64, 0),
                "t129": (2, 129, 6, 2, 96, 0),
                "t4500-window": (1, 4500, 8, 2, 128, 4096)}
 FLASH_F32_TOL = 2e-5    # the same float32 terms summed in other orders
+# the float32 route at the granite smoke prefill's shape, launched again
+# and again in one process (b, t, h, kv, hd, window)
+FLASH_REPEAT = {"shape": (2, 96, 4, 2, 32, 0), "launches": 256, "seed": 96}
 
 
 def visible_pairs(t: int, window: int) -> int:
@@ -2787,6 +2805,66 @@ def flash_case(shape, dtype, seed):
     again = flash_attention_kernel(q, k, v, window=window)
     check(torch.equal(got, again), f"K4 {shape}: not deterministic")
     return (q, k, v), want, rec
+
+
+def flash_repeat() -> dict:
+    """FLASH_REPEAT's launches of K4's float32 route, each against the
+    plain version on its own fresh inputs: the count beyond
+    FLASH_F32_TOL must be 0."""
+    import torch
+
+    from repro_torch.kernels import FLASH_F32_KERNEL, flash_attention_kernel
+    from repro_torch.kernels.ref import flash_attention_plain
+    b, t, h, kv, hd, window = FLASH_REPEAT["shape"]
+    n = FLASH_REPEAT["launches"]
+    gen = torch.Generator(device=DEVICE).manual_seed(FLASH_REPEAT["seed"])
+    before = FLASH_F32_KERNEL.launches
+    errs = []
+    for _ in range(n):
+        q, k, v = (torch.randn((b, t, m, hd), generator=gen, device=DEVICE)
+                   for m in (h, kv, kv))
+        got = flash_attention_kernel(q, k, v, window=window)
+        errs.append((got - flash_attention_plain(q, k, v, window=window))
+                    .abs().amax())
+    errs = torch.stack(errs)
+    rec = {"phase": "flash", "case": "repeat", "shape": FLASH_REPEAT["shape"],
+           "dtype": "float32", "launches": FLASH_F32_KERNEL.launches - before,
+           "bad": int((errs > FLASH_F32_TOL).sum()),
+           "max_abs_err": float(errs.max()), "tol": FLASH_F32_TOL}
+    check(rec["launches"] == n, f"K4 repeat: {rec['launches']} float32 "
+          f"launches, expected {n}")
+    check(rec["bad"] == 0, f"K4 repeat: {rec['bad']} of {n} float32 "
+          f"launches beyond {FLASH_F32_TOL} (max {rec['max_abs_err']})")
+    return rec
+
+
+def phase_lint():
+    """``viem lint`` on the port must find nothing active, and its
+    runtime audit on the card must pass every combo it runs."""
+    from repro_torch.staticcheck import LintConfig, lint_paths
+    from repro_torch.staticcheck.engine import DEFAULT_BASELINE
+    from repro_torch.staticcheck.runtime_audit import run_audit
+    t0 = time.perf_counter()
+    result = lint_paths(LintConfig(baseline=DEFAULT_BASELINE), root=ROOT)
+    lint_s = time.perf_counter() - t0
+    check(not result.active and not result.unjustified,
+          f"lint: {len(result.active)} active, {len(result.unjustified)} "
+          f"unjustified: {[f.fingerprint() for f in result.active][:5]}")
+    t0 = time.perf_counter()
+    audit = run_audit(device=DEVICE)
+    audit_s = time.perf_counter() - t0
+    status = {}
+    for e in audit["entries"]:
+        status[e["status"]] = status.get(e["status"], 0) + 1
+    failed = [e for e in audit["entries"] if e["status"] == "failed"]
+    emit({"phase": "lint", "files": result.files_checked,
+          "active": len(result.active), "suppressed": len(result.suppressed),
+          "lint_seconds": lint_s, "audit_device": audit["device"],
+          "audit": status, "audit_seconds": audit_s,
+          "failed": [(e["construction"], e["topology"], e["problems"][:3])
+                     for e in failed]})
+    check(audit["ok"] and audit["device"] == DEVICE and status.get("ok"),
+          f"lint: the runtime audit failed on {len(failed)} combos")
 
 
 def sdpa_fn(q, k, v, window):
@@ -2866,6 +2944,7 @@ def phase_flash():
               "dtype": dname, **rec})
         del q, k, v, want, lib
         torch.cuda.empty_cache()
+    emit(flash_repeat())
     emit({"phase": "flash", "library_call": "torch.nn.functional."
           "scaled_dot_product_attention(is_causal / window mask, "
           "enable_gqa=True) on (B, H, T, hd) copies",
@@ -3537,7 +3616,7 @@ def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one CUDA card (see the module notes).")
-    ap.add_argument("--stop-after", choices=("build", "kernels",
+    ap.add_argument("--stop-after", choices=("build", "kernels", "lint",
                                              "portfolio", "remap",
                                              "service"),
                     help="run the phases up to this one and stop, with "
@@ -3546,8 +3625,12 @@ def main(argv) -> int:
     t_run = time.perf_counter()
     preflight()
     import torch
+
+    from repro_torch.testing import warm_cpu_math
     # full float32 products in the plain versions and the library call
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the CPU sides' first multi-threaded cos may be ~1.5e-4 off
+    warm_cpu_math()
     card = phase_device()
     phase_build()
     if args.stop_after == "build":
@@ -3555,6 +3638,9 @@ def main(argv) -> int:
     forms = machines()
     k1, k2 = phase_kernels(forms)
     if args.stop_after == "kernels":
+        return 0
+    phase_lint()
+    if args.stop_after == "lint":
         return 0
     from repro_torch.core import Hierarchy, grid3d
     from repro_torch.topology import (FatTreeTopology, MatrixTopology,

@@ -27,6 +27,7 @@ Usage:
         [--metrics-out=metrics.prom]      # the run's metrics, Prometheus text
         [--output_filename=permutation]
     python -m repro_torch.cli.viem remap-watch graph.metis ...  # closed loop
+    python -m repro_torch.cli.viem lint [paths] [--runtime-audit]  # lint
     python -m repro_torch.cli.viem --list-algorithms
 
 The flags are the JAX package's ``repro.cli.viem`` flags, and the
@@ -34,9 +35,9 @@ defaults are its defaults (``engine="host"`` with the communication
 neighborhood; ``--multilevel`` selects the V-cycle over the device
 engine, its knobs following ``--preconfiguration_mapping``;
 ``--portfolio`` the multistart search over the device engine;
-``remap-watch`` the closed remapping loop, :mod:`.remap_watch`).  The
-``lint`` subcommand, not ported yet, exits with an error that names its
-ROADMAP item.
+``remap-watch`` the closed remapping loop, :mod:`.remap_watch`; ``lint``
+the invariant lint engine and runtime audit, :mod:`repro_torch.staticcheck`,
+which exits with its own status).
 """
 
 from __future__ import annotations
@@ -51,10 +52,6 @@ from ..core import Mapper, MappingSpec, list_constructions, \
     list_neighborhoods, read_metis
 from .machine import add_topology_flags, machine_flags_given, \
     topology_from_args
-
-# subcommands of repro.cli.viem the port does not have yet: name ->
-# ROADMAP queue-1 item
-_UNPORTED_COMMANDS = {"lint": 8}
 
 
 def _print_algorithms():
@@ -172,10 +169,12 @@ def main(argv=None):
         # drift → what-if replay → incremental remap
         from .remap_watch import main as remap_watch_main
         return remap_watch_main(argv[1:])
-    if argv and argv[0] in _UNPORTED_COMMANDS:
-        sys.exit(f"viem: the {argv[0]!r} subcommand is not ported to "
-                 f"repro_torch yet (ROADMAP.md queue 1, item "
-                 f"{_UNPORTED_COMMANDS[argv[0]]})")
+    if argv and argv[0] == "lint":
+        # the invariant lint engine (repro_torch.staticcheck): VIEM001,
+        # VIEM003 and VIEM004 AST rules + the runtime audit; its exit
+        # status is the command's (0 clean, 1 findings)
+        from ..staticcheck.__main__ import main as lint_main
+        sys.exit(lint_main(argv[1:]))
     ap = _parser()
     args = ap.parse_args(argv)
 

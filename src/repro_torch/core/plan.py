@@ -487,11 +487,12 @@ class MappingPlan:
 
             from ..kernels.pad import pad_edge_arrays
             u, v, w = g.edge_list()
-            eu, ev, ew = pad_edge_arrays(u, v, w, device=self.device)
-            p = torch.from_numpy(np.asarray(perm, dtype=np.int32)).to(
-                self.device)
-            with host_boundary("plan.objective"):
-                return float(self._objective_fn(eu, ev, ew, p))
+            with host_boundary("plan.upload"):
+                eu, ev, ew = pad_edge_arrays(u, v, w, device=self.device)
+                p = torch.from_numpy(np.asarray(perm, dtype=np.int32)).to(
+                    self.device)
+            with host_boundary("plan.objective") as rb:
+                return float(rb.read(self._objective_fn(eu, ev, ew, p)))
         return qap_objective(g, self.topology, perm)
 
     def gain_matrix(self, g: CommGraph, perm: np.ndarray) -> np.ndarray:

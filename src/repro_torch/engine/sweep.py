@@ -414,7 +414,8 @@ class RefinementEngine:
                hash(np.asarray(g.adjwgt).tobytes()), k, e)
 
         def build():
-            dg = DeviceGraph.from_comm(g, device=self.device)
+            with host_boundary("engine.upload"):
+                dg = DeviceGraph.from_comm(g, device=self.device)
             if k is not None or e is not None:
                 dg = dg.pad_to(k if k is not None else dg.max_deg,
                                e if e is not None else dg.eu.shape[0])
@@ -425,10 +426,12 @@ class RefinementEngine:
     def _device_pairs(self, pairs: np.ndarray, pad_to: int = 128) -> tuple:
         pairs = np.asarray(pairs)
         key = (pad_to, pairs.shape[0], hash(pairs.tobytes()))
-        return self._lru_get(
-            self._pair_cache, key,
-            lambda: device_pairs(pairs, pad_to=pad_to, device=self.device),
-            "pairs")
+
+        def build():
+            with host_boundary("engine.upload"):
+                return device_pairs(pairs, pad_to=pad_to, device=self.device)
+
+        return self._lru_get(self._pair_cache, key, build, "pairs")
 
     def _bucket_p(self, bucket, n_pairs: int) -> int:
         key = (bucket.max_deg, bucket.num_edges, bucket.num_pairs,
@@ -600,17 +603,19 @@ class RefinementEngine:
         results into ``perms`` and report each lane's stats against its
         graph; the loop's syncs go to ``self.last_syncs``."""
         import torch
-        perm0 = torch.from_numpy(np.stack(
-            [np.asarray(p, dtype=np.int32) for p in perms])).to(self.device)
+        with host_boundary("engine.upload"):
+            perm0 = torch.from_numpy(np.stack(
+                [np.asarray(p, dtype=np.int32) for p in perms])).to(
+                    self.device)
         with host_boundary("engine.sweeps", self.device) as hb:
             out_perm, trace, sweeps, swaps, tel = self._refine(
                 *tensors, perm0, self._D, [self._eps(j) for j in j0s],
                 tabu_tenure, dlb, telemetry, hb)
-        with host_boundary("engine.readback"):
-            perm_h = out_perm.cpu().numpy()
-            trace_h = trace.cpu().numpy()
-            swaps_h = swaps.cpu().numpy()
-            tel_h = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+        with host_boundary("engine.readback") as rb:
+            perm_h = rb.read(out_perm)
+            trace_h = rb.read(trace)
+            swaps_h = rb.read(swaps)
+            tel_h = {k: (rb.read(v) if isinstance(v, torch.Tensor)
                          else v) for k, v in tel.items()}
         passes = sweeps + (sweeps < self.max_sweeps)
         self.last_syncs = {"sweeps": int(sweeps.max()),

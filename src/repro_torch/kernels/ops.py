@@ -87,9 +87,9 @@ def objective(graph, hierarchy, perm, device=None) -> float:
     eu, ev, ew = pad_edge_arrays(u, v, w, device=dev)
     p = _on(np.asarray(perm, dtype=np.int32), dev)
     D = torch.zeros((1, 1), dtype=torch.float32, device=dev)
-    with host_boundary("objective.readback"):
-        return float(qap_objective_edges("tree", _tree_params(hierarchy),
-                                         eu, ev, ew, p, D))
+    with host_boundary("objective.readback") as rb:
+        return float(rb.read(qap_objective_edges(
+            "tree", _tree_params(hierarchy), eu, ev, ew, p, D)))
 
 
 def objective_ref(graph, hierarchy, perm, device=None) -> float:
@@ -97,7 +97,7 @@ def objective_ref(graph, hierarchy, perm, device=None) -> float:
     dev = resolve_device(device)
     u, v, w = graph.edge_list()
     perm = np.asarray(perm)
-    with host_boundary("objective.readback"):
-        return float(ref.qap_objective_edges_ref(
+    with host_boundary("objective.readback") as rb:
+        return float(rb.read(ref.qap_objective_edges_ref(
             _on(perm[u], dev, torch.int32), _on(perm[v], dev, torch.int32),
-            _on(w, dev, torch.float32), *_tree_params(hierarchy)))
+            _on(w, dev, torch.float32), *_tree_params(hierarchy))))

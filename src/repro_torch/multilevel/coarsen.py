@@ -60,16 +60,17 @@ def coarsen_graph(g: CommGraph, device=None, syncs: dict | None = None
     from ..kernels.pad import pad_edge_arrays
     dev = resolve_device(device)
     u, v, w = g.edge_list()
-    eu, ev, ew = pad_edge_arrays(u, v, w, device=dev)
-    vw = torch.from_numpy(g.vwgt.astype(np.float32)).to(dev)
+    with host_boundary("coarsen.upload"):
+        eu, ev, ew = pad_edge_arrays(u, v, w, device=dev)
+        vw = torch.from_numpy(g.vwgt.astype(np.float32)).to(dev)
     with host_boundary("coarsen.contract", dev) as hb:
         labels, ceu, cev, cew, cvw = coarsen_arrays(eu, ev, ew, vw, hb)
     if syncs is not None:
         syncs.update(reads=hb.reads, observed=hb.syncs)
-    with host_boundary("coarsen.rebuild"):
-        labels = labels.cpu().numpy().astype(np.int64)
-        ceu, cev = ceu.cpu().numpy(), cev.cpu().numpy()
-        cew, cvw = cew.cpu().numpy(), cvw.cpu().numpy()
+    with host_boundary("coarsen.rebuild") as rb:
+        labels = rb.read(labels).astype(np.int64)
+        ceu, cev = rb.read(ceu), rb.read(cev)
+        cew, cvw = rb.read(cew), rb.read(cvw)
         nc = n // 2
         # stable sort by label: each label appears exactly twice,
         # members in ascending fine-vertex order

@@ -51,6 +51,13 @@ A ``warnings.catch_warnings`` block in another thread that opens before
 a scope and closes while it is open puts back the hook it saw, and the
 scope's later syncs then go uncounted: such a block is process-global
 in the same way.
+
+An observer installed on a thread (:func:`set_observer`; the runtime
+audit of :mod:`repro_torch.staticcheck.runtime_audit` is one) is told
+of every scope that thread opens and closes, CUDA or not, and brackets
+every read made on it, so an op recorder can tell a counted read from
+any other sync.  Without one, a scope and a read cost a thread-local
+lookup more.
 """
 
 from __future__ import annotations
@@ -59,14 +66,15 @@ import contextlib
 import threading
 import warnings
 
-__all__ = ["Boundary", "host_boundary"]
+__all__ = ["Boundary", "host_boundary", "set_observer"]
 
 # what PyTorch's sync warnings say ("called a synchronizing CUDA
 # operation"), matched without regard to case
 _SYNC = "synchroniz"
 
 _LOCK = threading.Lock()
-_LOCAL = threading.local()      # .stack: this thread's open CUDA scopes
+_LOCAL = threading.local()      # .stack: this thread's open CUDA scopes;
+                                # .observer: see set_observer
 _open = 0                       # CUDA scopes open in the process
 _saved = None                   # (mode, hook, filter) from before the first
 _ALL: list = []                 # open all-thread CUDA scopes, innermost last
@@ -84,7 +92,23 @@ class Boundary:
         """One deliberate, counted device->host readback: ``t.item()``
         for a 0-d tensor, a numpy array of ``t`` otherwise."""
         self.reads += 1
-        return t.item() if t.dim() == 0 else t.cpu().numpy()
+        obs = getattr(_LOCAL, "observer", None)
+        if obs is None:
+            return t.item() if t.dim() == 0 else t.cpu().numpy()
+        with obs.reading(self, t):
+            return t.item() if t.dim() == 0 else t.cpu().numpy()
+
+
+def set_observer(observer):
+    """Install ``observer`` on this thread (``None`` removes it) and
+    return the one installed before.  It is told of every scope the
+    thread opens and closes (``observer.opened(b)``, ``observer.closed(b)``:
+    CUDA scopes after their counting starts and before it stops) and
+    brackets every read made on the thread (``with
+    observer.reading(b, t):`` around the readback of tensor ``t``)."""
+    before = getattr(_LOCAL, "observer", None)
+    _LOCAL.observer = observer
+    return before
 
 
 def _stack() -> list:
@@ -154,11 +178,16 @@ def host_boundary(tag: str, device=None, all_threads: bool = False):
     debug mode; with ``all_threads`` also those of threads without a
     scope of their own (see module docstring)."""
     b = Boundary(tag)
-    if device is None or getattr(device, "type", device) != "cuda":
-        yield b
-        return
-    _open_scope(b, all_threads)
+    cuda = device is not None and getattr(device, "type", device) == "cuda"
+    obs = getattr(_LOCAL, "observer", None)
+    if cuda:
+        _open_scope(b, all_threads)
+    if obs is not None:
+        obs.opened(b)
     try:
         yield b
     finally:
-        _close_scope(b)
+        if obs is not None:
+            obs.closed(b)
+        if cuda:
+            _close_scope(b)

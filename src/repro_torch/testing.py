@@ -2,7 +2,9 @@
 
 :func:`tensors_in` counts the torch tensors a result still holds (what
 the mapping service hands out must hold none); :func:`pair_gain_lanes`
-records the lane count of every K2 launch while it is entered.
+records the lane count of every K2 launch while it is entered;
+:func:`warm_cpu_math` runs the CPU's vector math once before a CPU
+reference is computed.
 
 Nothing here runs at import: this module is imported on machines with
 no CUDA toolkit.
@@ -13,7 +15,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
-__all__ = ["pair_gain_lanes", "tensors_in"]
+__all__ = ["pair_gain_lanes", "tensors_in", "warm_cpu_math"]
 
 
 def tensors_in(obj) -> int:
@@ -51,3 +53,23 @@ def pair_gain_lanes():
         yield lanes
     finally:
         del PAIR_GAIN_KERNEL.launch
+
+
+def warm_cpu_math() -> None:
+    """Run the CPU's transcendental kernels once over every intra-op
+    thread, results dropped.
+
+    The first multi-threaded ``torch.cos`` of a process may come back
+    wrong for one thread's share of its tensor, by up to 1.5e-4 (about
+    11 bits, on values in [-1, 1]); later calls are exact.  Seen in 6 of
+    2,000 fresh processes on an Intel Xeon with oneMKL 2024 (PyTorch's
+    CPU ``cos`` goes through MKL's vector math;
+    ``tools/cpu_first_cos.py``), and in 3 of 63 on the host of an H100
+    machine, where it put the granite smoke prefill's CPU logits 6.2e-4
+    off (layer 0's RoPE of q; ``tools/flash_f32_repeat.py``).  A CPU
+    reference that a test holds the card to computes after this call."""
+    import torch
+    x = torch.linspace(-100.0, 100.0, 4096 * max(1, torch.get_num_threads()))
+    for fn in (torch.cos, torch.sin, torch.exp, torch.log1p, torch.tanh,
+               torch.sigmoid, torch.rsqrt, torch.erf):
+        fn(x)

@@ -83,6 +83,24 @@ def oracle_pes(kind, params, n, seed):
     return pes.astype(np.int32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_references():
+    """What the CPU references of this file need: full float32 products
+    (the card's TF32 flags stated, not left to defaults) and the CPU's
+    vector math run once first (``warm_cpu_math``: a process's first
+    multi-threaded ``torch.cos`` may come back ~1.5e-4 off, which put
+    the smoke prefill's CPU logits 6.2e-4 from the card's)."""
+    from repro_torch.testing import warm_cpu_math
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    warm_cpu_math()
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -615,10 +633,32 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention_kernel(q, k.cpu(), k)
 
 
+def test_flash_f32_repeats_at_the_smoke_prefill_shape(cuda):
+    """K4's float32 route at the shape the granite smoke prefill gives it
+    (q (2, 96, 4, 32), k and v (2, 96, 2, 32): 3 kv tiles through the
+    2-stage ring, so the ring's refill runs), 256 launches in one
+    process on fresh randn inputs, each within 2e-5 of the plain
+    version (tools/flash_f32_repeat.py does the same across fresh
+    processes)."""
+    gen = torch.Generator(device=cuda).manual_seed(96)
+    before = FLASH_F32_KERNEL.launches
+    worst = []
+    for _ in range(256):
+        q, k, v = (torch.randn((2, 96, n, 32), generator=gen, device=cuda)
+                   for n in (4, 2, 2))
+        got = flash_attention_kernel(q, k, v)
+        worst.append((got - flash_attention_plain(q, k, v)).abs().amax())
+    assert FLASH_F32_KERNEL.launches == before + 256
+    worst = torch.stack(worst)
+    assert float(worst.max()) <= 2e-5, \
+        (int((worst > 2e-5).sum()), float(worst.max()))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_on_card_equals_cpu(cuda, dtype):
     """The smoke granite prefill through K4 on the card against the plain
-    version on the CPU, same weights.  float32 within 1e-4 (TF32 is off);
+    version on the CPU, same weights.  float32 within 1e-4 (TF32 is off,
+    and the CPU's vector math was run once first: ``_cpu_references``);
     bfloat16 within max 0.1 and mean 0.02, the tolerance the CPU tests
     hold the port to against the JAX package (tests/test_torch_lm.py)."""
     import dataclasses
@@ -1142,3 +1182,17 @@ def test_train_step_scope_counts_a_sync_in_backward(cuda):
     with host_boundary("train.step", cuda, all_threads=True) as hb:
         torch.autograd.grad((x.clone() * 2).sum(), x)
     assert hb.syncs == 0
+
+
+def test_runtime_audit_on_card(cuda):
+    """``viem lint --runtime-audit --device cuda`` on the tree machine:
+    every construction through ``execute``, ``execute_batch`` and the
+    portfolio's lanes under the op recorder and PyTorch's sync debug
+    mode; every sync a counted read (tests/test_torch_staticcheck.py
+    runs the five machines on the CPU)."""
+    from repro_torch.staticcheck.runtime_audit import run_audit
+    report = run_audit(topologies=["tree"], device="cuda")
+    assert report["device"] == "cuda"
+    assert report["ok"], [e for e in report["entries"]
+                          if e["status"] != "ok"]
+    assert all(e["status"] == "ok" for e in report["entries"])

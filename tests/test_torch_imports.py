@@ -51,5 +51,10 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.train.loss", "repro_torch.train.optimizer",
             "repro_torch.train.compression", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.checkpoint",
-            "repro_torch.launch.train"} <= set(report["names"])
+            "repro_torch.launch.train",
+            "repro_torch.staticcheck", "repro_torch.staticcheck.rules",
+            "repro_torch.staticcheck.engine",
+            "repro_torch.staticcheck.report",
+            "repro_torch.staticcheck.runtime_audit",
+            "repro_torch.staticcheck.__main__"} <= set(report["names"])
     assert report["leaked"] == [], f"repro_torch pulled in {report}"

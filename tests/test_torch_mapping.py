@@ -15,6 +15,7 @@ is ported: ``tests/test_torch_search.py``; the multilevel V-cycle:
 
 import functools
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -205,23 +206,28 @@ def test_cli_unported_flags_exit(tmp_path, monkeypatch, flags, item):
         assert json.loads(text)["traceEvents"]
 
 
-# ``remap-watch`` is ported (ROADMAP item 10; its parity tests are in
-# tests/test_torch_monitor.py): its case, id kept, checks that the
-# subcommand reaches its own parser (which wants the graph file) instead
-# of exiting as unported.  ``lint`` is not ported yet.
+# Both subcommands are ported now, and each case keeps its id:
+# ``remap-watch`` (ROADMAP item 10; its parity tests are in
+# tests/test_torch_monitor.py) reaches its own parser, which wants the
+# graph file; ``lint`` (item 8; tests/test_torch_staticcheck.py) reaches
+# the port's lint, which exits 0 on src/repro_torch.
 @pytest.mark.parametrize("command,item", [("remap-watch", "item 10"),
                                           ("lint", "item 8")])
 def test_cli_unported_commands_name_their_item(command, item, capsys):
     from repro_torch.cli import viem as port_cli
+    root = Path(__file__).resolve().parents[1]
+    extra = ["--root", str(root)] if command == "lint" else []
     with pytest.raises(SystemExit) as exc:
-        port_cli.main([command])
+        port_cli.main([command, *extra])
     if command == "remap-watch":
         assert exc.value.code == 2                  # argparse: no file
         assert "the following arguments are required: file" \
             in capsys.readouterr().err
         return
-    assert "not ported" in str(exc.value.code)
-    assert item in str(exc.value.code)
+    assert exc.value.code == 0
+    out = capsys.readouterr().out
+    assert "0 active finding(s)" in out
+    assert "not ported" not in out
 
 
 # ------------------------------------------------------ ported pipelines

@@ -2,10 +2,12 @@
 of two checkouts in one machine session.
 
     python3 tools/ab_single_call.py [--src DIR] [--reps 5]
+                                    [--parts k2,torus,k4f32]
 
 ``--src`` is the ``src`` directory of the checkout to time (default:
 this checkout's); the port's kernels are built into that checkout's
-``build/``.  It prints one JSON line:
+``build/``.  ``--parts`` picks what to time (default ``k2,torus``).  It
+prints one JSON line:
 
 - ``k2_tree_ms``: K2's device time per launch in the tree form at the
   main path's shape (4:16:64 / 1:10:100, the 16³ stencil, the
@@ -18,6 +20,12 @@ this checkout's); the port's kernels are built into that checkout's
   longest of the single maps), each of ``--reps`` maps after a first one
   that builds the kernels, the engine's ``refine`` bracketed by
   synchronizes;
+- ``k4_f32_ms`` (part ``k4f32``): K4's float32 route at
+  ``chip_smoke.FLASH_SHAPES``' float32 shapes (``serve-f32``: B 4, T
+  2048, 32/8 heads, hd 128, causal; ``window-f32``: B 1, T 8192, 36/4
+  heads, hd 128, window 4096), randn inputs from seed 2, milliseconds a
+  call over back-to-back calls (CUDA events, as ``chip_smoke.cuda_ms``),
+  ``--reps`` readings each;
 - the card's name and power limit (``nvidia-smi``).
 
 Compare two checkouts only within one session: run A, B, B, A.
@@ -97,12 +105,38 @@ def torus_refine_seconds(reps: int) -> list:
     return secs[1:]
 
 
+def k4_f32_ms(reps: int) -> dict:
+    import torch
+
+    from chip_smoke import FLASH_SHAPES, cuda_ms
+    from repro_torch.kernels import FLASH_F32_KERNEL, flash_attention_kernel
+    out = {}
+    for name in ("serve-f32", "window-f32"):
+        (b, t, h, kv, hd, window), _ = FLASH_SHAPES[name]
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        q, k, v = (torch.randn((b, t, n, hd), generator=gen, device="cuda")
+                   for n in (h, kv, kv))
+        before = FLASH_F32_KERNEL.launches
+        out[name] = [cuda_ms(lambda: flash_attention_kernel(
+            q, k, v, window=window), iters=10, warmup=2)
+            for _ in range(reps)]
+        if FLASH_F32_KERNEL.launches == before:
+            raise RuntimeError("K4's float32 route did not launch")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--parts", default="k2,torus")
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke  # noqa: F401  (puts this checkout's src on the path)
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -112,9 +146,13 @@ def main(argv) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     import repro_torch
-    out = {"src": args.src, "module": repro_torch.__file__, "card": card,
-           "torus_refine_seconds": torus_refine_seconds(args.reps),
-           "k2_tree_ms": k2_tree_ms()}
+    out = {"src": args.src, "module": repro_torch.__file__, "card": card}
+    if "torus" in parts:
+        out["torus_refine_seconds"] = torus_refine_seconds(args.reps)
+    if "k2" in parts:
+        out["k2_tree_ms"] = k2_tree_ms()
+    if "k4f32" in parts:
+        out["k4_f32_ms"] = k4_f32_ms(args.reps)
     print(json.dumps(out), flush=True)
     return 0
 
