@@ -259,6 +259,34 @@ one JSON line after each, failing loudly on the first fault:
               (B); the 4 steps uninterrupted (C).  B must equal A bit for
               bit, or (if the card's steps are not deterministic) lie
               within A's spread against C; the line says which.
+22. serve:hybrid — jamba-v0.1-52b at its published width, depth cut
+              32 → 8 (one period: 7 Mamba + 1 attention layer, 4 MoE + 4
+              SwiGLU FFNs, 13.30 B parameters), bf16, B 4 × 2048 prompt
+              tokens + 32 generated, through ``serve_model`` (what
+              ``serve`` drives) with the launch counts set to 0 just
+              before and read just after: K4's bf16 route launched once
+              (the one attention layer's prefill), nothing else, 0 host
+              syncs in the decode loop, tokens inside the vocabulary;
+              then the same prefill through K4 and through its plain
+              version within SERVE_TOL, the plain one taking the K4
+              one's MoE routes (a near tie between two experts otherwise
+              moves a token, and its logits by up to 1.7), the MoE's
+              drops at capacity factor 1.25 (at least one), and the
+              prefill's device time
+              split into the Mamba scan, the MoE's routing, dispatch,
+              expert matmuls and combine, K4 and the rest.
+23. serve:rwkv — ``serve("rwkv6-3b", 4, 2048, 32)`` at the published
+              config, whole (32 layers, 3.27 B parameters), bf16: no
+              kernel launched (no attention), 0 decode syncs, tokens
+              inside the vocabulary; the prefill's device time split into
+              the WKV chunks, the channel mix and the rest.
+24. lm:parity — the card against the CPU at float32 (LM_PARITY): jamba's
+              smoke width at 16 layers and capacity factor 1.25,
+              mixtral's smoke width, rwkv6-3b's published width at 2
+              layers; T 256, the prefill and 4 decode steps fed the CPU's
+              tokens: logits and every cache within 1e-4, every MoE route
+              (expert, token, slot, kept or dropped) equal, K4's float32
+              route once per attention layer.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 K4 one per route: route, source, the TPU kernel it replaces, launches on
@@ -2983,9 +3011,13 @@ def logits_diff(got, want, vocab):
                                        .float().mean())}
 
 
-def prefill_pair(cfg, seed, batch, prompt_len, max_len):
+def prefill_pair(cfg, seed, batch, prompt_len, max_len, plans=None):
     """The prefill of ``cfg``'s seeded weights on the seeded prompts
-    through K4, and again with K4's plain version in its place.  Returns
+    through K4, and again with K4's plain version in its place.  With
+    ``plans`` (a list), the K4 prefill's MoE plans are recorded into it
+    and the plain prefill takes them in place of routing its own tokens
+    (``testing.moe_replay``), so that the comparison sees K4's arithmetic
+    and not a token moved to another expert by a near tie.  Returns
     (logits, plain logits, K4 prefill seconds, plain seconds, params,
     prompts)."""
     import torch
@@ -2995,16 +3027,22 @@ def prefill_pair(cfg, seed, batch, prompt_len, max_len):
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models.transformer import (init_params,
                                                 prefill_with_cache)
+    from repro_torch.testing import moe_replay, moe_routes
     params = init_params(seed, cfg, device=DEVICE)
     prompts = make_prompts(cfg, batch, prompt_len, seed, DEVICE)
     run = lambda: prefill_with_cache(params, prompts, cfg,  # noqa: E731
                                      max_len)[0]
+    pin = plans is not None
     with torch.inference_mode():
-        logits, k4_s = _host_s(run)
+        with moe_routes() if pin else contextlib.nullcontext() as got:
+            logits, k4_s = _host_s(run)
+        if pin:
+            plans.extend(got)
         kernel = attention.flash_attention_kernel
         attention.flash_attention_kernel = flash_attention_plain
         try:
-            plain, plain_s = _host_s(run)
+            with moe_replay(plans) if pin else contextlib.nullcontext():
+                plain, plain_s = _host_s(run)
         finally:
             attention.flash_attention_kernel = kernel
     return logits, plain, k4_s, plain_s, params, prompts
@@ -3612,6 +3650,408 @@ def phase_train_checkpoint():
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 22–24
+# serve:hybrid — jamba-v0.1-52b at its published width (d 4096, 32/8
+# heads of 128, d_ff 14336, d_inner 8192, d_state 16, 16 experts top-2,
+# vocab 65,536), depth cut 32 → 8: one period, 7 Mamba layers and 1
+# attention layer, 4 MoE and 4 SwiGLU FFNs, 13.30 B parameters (26.6 GB
+# in bf16; the whole model's 51.6 B, 103 GB, do not fit on one card);
+# bf16, B 4 × 2048 prompt tokens + 32 generated, seeded random weights.
+# At T 2048 the production capacity factor 1.25 gives 320 slots an
+# expert against a mean load of 256, so the MoE drops tokens.
+HYBRID = {"arch": "jamba-v0.1-52b", "n_layers": 8, "batch": 4,
+          "prompt_len": 2048, "gen": 32, "seed": 0}
+# serve:rwkv — rwkv6-3b whole (32 layers, d 2560, 40 heads of 64, d_ff
+# 8960, vocab 65,536; 3.27 B parameters, 6.5 GB in bf16), the same batch
+RWKV_SERVE = {"arch": "rwkv6-3b", "batch": 4, "prompt_len": 2048,
+              "gen": 32, "seed": 0}
+# lm:parity — the card against the CPU at float32: the prefill and
+# `steps` decode steps (both fed the CPU's greedy tokens), logits and
+# every cache within tol (the CPU tests' float32 tolerance against the
+# JAX package), every MoE route (expert, token, slot, kept) equal.
+# (arch, smoke config or the published one, overrides, batch): jamba's
+# smoke width at 2 periods (period index 1 exercised) with the
+# production capacity factor; mixtral's smoke width (split 4, window 64);
+# rwkv6-3b at its published width, 2 layers.  The last `run` tokens of
+# each prompt repeat one token (a padding or whitespace run): on uniform
+# prompts the random router spreads jamba's tokens within capacity (the
+# fullest expert at 160 of 160 slots on the CPU), and the run skews its
+# load so that tokens drop at factor 1.25
+LM_PARITY = {"cases": (("jamba-v0.1-52b", True,
+                        {"n_layers": 16, "capacity_factor": 1.25}, 2),
+                       ("mixtral-8x7b", True, {}, 2),
+                       ("rwkv6-3b", False, {"n_layers": 2}, 2)),
+             "t": 256, "run": 64, "steps": 4, "tol": 1e-4, "seed": 0}
+
+
+def _rms1(gen, shape, dtype):
+    """Seeded N(0, 1) rows scaled to RMS 1 (what a layer's ``rms_norm``
+    with scale 1 hands on), on the card."""
+    import torch
+    x = torch.randn(shape, generator=gen, device=DEVICE)
+    return (x * torch.rsqrt((x * x).mean(-1, keepdim=True))).to(dtype)
+
+
+def _device_busy(fn):
+    """(ms, source, profile) of one call of ``fn`` after a warm one: its
+    device busy ms from torch.profiler's kernel events
+    (``device_split``), or, where the profiler records no device time,
+    the CUDA-event ms of back-to-back calls (``cuda_ms``: the card's idle
+    gaps counted too).  CUDA events around calls held behind a spin
+    kernel (``device_ms``) do not serve here: a part of ~1,500 launches
+    fills the stream's queue while it is held."""
+    fn()
+    rec = device_split(fn, trace=True)
+    if "error" not in rec:
+        return rec["device_busy_ms"], "torch.profiler", rec
+    return (cuda_ms(fn, iters=3, warmup=1),
+            f"CUDA events, idle gaps included ({rec['error']})", rec)
+
+
+def prefill_split(run, parts: dict) -> dict:
+    """The device busy time of one prefill (``run``) split into
+    ``parts`` ({name: (fn, count)}: each fn one layer's part at the
+    prefill's shapes, counted once per layer of its kind) and the rest,
+    each time from ``_device_busy``."""
+    busy, source, whole = _device_busy(run)
+    info = {"busy_from": source}
+    if "error" not in whole:
+        info.update(prefill_wall_ms=whole["wall_ms"],
+                    device_idle_share=whole["device_idle_share"],
+                    kernel_launches=whole["kernel_launches"],
+                    matmul_ms=whole["groups_ms"]["matmul"],
+                    top_kernels=whole["top_kernels"])
+    per_call, sources = {}, {}
+    for name, (fn, _) in parts.items():
+        per_call[name], sources[name], _ = _device_busy(fn)
+    split = {name: per_call[name] * n for name, (_, n) in parts.items()}
+    split["rest"] = busy - sum(split.values())
+    return dict(info, prefill_busy_ms=busy, split_ms=split,
+                per_layer_ms=per_call, per_layer_from=sources)
+
+
+def _serve_line(label, cfg, out, wall, peak, launches):
+    import torch
+    tokens = out["tokens"].cpu()
+    check(tuple(tokens.shape) == (out["tokens"].shape[0], out["gen"]) and
+          tokens.dtype == torch.int32, f"{label}: tokens {tokens.shape} "
+                                       f"{tokens.dtype}")
+    check(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
+          f"{label}: a token outside the vocabulary")
+    check(out["decode_syncs"] == 0,
+          f"{label}: {out['decode_syncs']} host syncs in the decode loop")
+    gen = out["gen"]
+    return {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+            "batch": out["tokens"].shape[0], "prompt_len": out["prompt_len"],
+            "gen": gen, "params": cfg.param_count(), "dtype": cfg.dtype,
+            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+            "decode_step_ms": out["decode_s"] / (gen - 1) * 1e3,
+            "decode_tok_per_s": out["decode_tok_per_s"],
+            "decode_syncs": out["decode_syncs"], "serve_call_s": wall,
+            "max_memory_allocated": peak, "launches": launches,
+            "sample": tokens[0, :8].tolist()}
+
+
+def _serve_timed(serve_fn, first, p):
+    """``serve_fn(first, batch, prompt_len, gen, ...)`` (``serve`` of an
+    arch or ``serve_model`` of a config) with the launch counts set to 0
+    just before and read just after, and the peak memory of the call."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = serve_fn(first, p["batch"], p["prompt_len"], p["gen"],
+                   seed=p["seed"], device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    out.update(gen=p["gen"], prompt_len=p["prompt_len"])
+    return out, wall, torch.cuda.max_memory_allocated(), launches
+
+
+def phase_serve_hybrid():
+    """jamba-v0.1-52b at full width, one period, through ``serve_model``
+    (what ``serve`` drives, with the config from ``dataclasses.replace``);
+    then the same prefill through K4 and through its plain version, the
+    MoE's drops, and the prefill's device time split."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_model
+    p = HYBRID
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(p["arch"]), n_layers=p["n_layers"])
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    n_moe = sum(f == "moe" for _, f in kinds)
+    out, wall, peak, launches = _serve_timed(serve_model, cfg, p)
+    line = _serve_line("serve:hybrid", cfg, out, wall, peak, launches)
+    check(launches["flash_attention"] == n_attn,
+          f"serve:hybrid: K4 (bf16) launched {launches['flash_attention']} "
+          f"times, expected {n_attn} (once per attention layer of the "
+          f"prefill)")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention"),
+          f"serve:hybrid: other kernels launched: {launches}")
+    line["kinds"] = {f"{m}+{f}": kinds.count((m, f)) for m, f in set(kinds)}
+    line["cut"] = (f"depth {get_config(p['arch']).n_layers} -> "
+                   f"{cfg.n_layers} (one period); widths as published")
+    tokens = out["tokens"].cpu()
+    del out
+    torch.cuda.empty_cache()
+
+    max_len = p["prompt_len"] + p["gen"]
+    routes = []
+    logits, plain, k4_s, plain_s, params, prompts = prefill_pair(
+        cfg, p["seed"], p["batch"], p["prompt_len"], max_len, plans=routes)
+    check(len(routes) == n_moe, f"serve:hybrid: {len(routes)} MoE plans "
+                                f"in a prefill of {n_moe} MoE layers")
+    dropped = [int((~r[4]).sum()) for r in routes]
+    slots = [int(r[4].numel()) for r in routes]
+    del routes
+    check(sum(dropped) > 0, "serve:hybrid: the MoE dropped no token at "
+                            "capacity factor 1.25")
+    check(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+          "serve:hybrid: non-finite prefill logits")
+    diff = logits_diff(logits, plain, cfg.vocab_size)
+    check(diff["rel_fro"] <= SERVE_TOL["rel_fro"] and
+          diff["max_abs"] <= SERVE_TOL["max_abs"],
+          f"serve:hybrid: K4 prefill vs plain prefill {diff} beyond "
+          f"{SERVE_TOL}")
+    last = logits[:, -1, :cfg.vocab_size].float()
+    top2 = torch.topk(last, 2, dim=-1).values
+    sure = ((top2[:, 0] - top2[:, 1]) > 0.1).cpu()
+    first = last.argmax(-1).to(torch.int32).cpu()
+    check(bool(torch.all((first == tokens[:, 0]) | ~sure)),
+          "serve:hybrid: first generated token != argmax of the rebuilt "
+          "prefill")
+    del logits, plain, last
+    torch.cuda.empty_cache()
+    split = hybrid_split(cfg, params, prompts, max_len)
+    del params, prompts
+    torch.cuda.empty_cache()
+    line.update(prefill_k4_vs_plain=diff, tol=SERVE_TOL,
+                moe_dropped_per_layer=dropped, moe_assignments_per_layer=slots,
+                prefill_warm_s=k4_s, prefill_plain_s=plain_s,
+                prefill_split=split, phase_s=time.perf_counter() - t_phase)
+    emit(line)
+
+
+def hybrid_split(cfg, params, prompts, max_len):
+    """The prefill's device time (``prefill_split``) split into the Mamba
+    scan (``_chunked_ssm``), the MoE's routing, dispatch, expert matmuls
+    and combine, K4 (the attention layer) and the rest.  Each part runs
+    alone on one layer at the prefill's shapes (seeded inputs of RMS 1:
+    the work is fixed by the shapes, the capacity included)."""
+    import torch
+
+    from repro_torch.models import mamba, moe
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import flash_attention
+    from repro_torch.models.transformer import prefill_with_cache
+    b, t = prompts.shape
+    kinds = [layer.kind for layer in params.layers]
+    n_mamba = sum(m == "mamba" for m, _ in kinds)
+    n_moe = sum(f == "moe" for _, f in kinds)
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    mam = next(layer for layer in params.layers if layer.kind[0] == "mamba")
+    exp = next(layer for layer in params.layers if layer.kind[1] == "moe")
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    dt = cfg.torch_dtype
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    ev = exp.ffn["w1"].shape[0]
+    cap = moe.capacity(cfg, t)
+    with torch.inference_mode():
+        xc = F.silu(_rms1(gen, (b, t, cfg.d_inner), dt))
+        h0 = torch.zeros((b, cfg.d_inner, cfg.mamba_d_state),
+                         dtype=torch.float32, device=DEVICE)
+        x = _rms1(gen, (b, t, cfg.d_model), dt)
+        se, st, sw, pos, keep, order, _ = moe._route(
+            x, exp.ffn["router"], e, k, cap, ev // e)
+        pos_c = torch.where(keep, pos, cap)
+        buf = moe._dispatch(x, se, st, pos_c, ev, cap)
+        y = moe._experts(exp.ffn, buf)
+        hd = cfg.head_dim_
+        q = torch.randn((b, t, cfg.n_heads_eff, hd), generator=gen,
+                        device=DEVICE).to(dt)
+        kv = torch.randn((b, t, cfg.n_kv_heads, hd), generator=gen,
+                         device=DEVICE).to(dt)
+        parts = {
+            "mamba_scan": (lambda: mamba._chunked_ssm(mam.mixer, xc, cfg,
+                                                      h0), n_mamba),
+            "moe_route": (lambda: moe._route(x, exp.ffn["router"], e, k,
+                                             cap, ev // e), n_moe),
+            "moe_dispatch": (lambda: moe._dispatch(x, se, st, pos_c, ev,
+                                                   cap), n_moe),
+            "moe_experts": (lambda: moe._experts(exp.ffn, buf), n_moe),
+            "moe_combine": (lambda: moe._combine(y, se, sw, pos_c, order, t,
+                                                 k * (ev // e)), n_moe),
+            "attention_k4": (lambda: flash_attention(q, kv, kv, cfg),
+                             n_attn)}
+        return prefill_split(
+            lambda: prefill_with_cache(params, prompts, cfg, max_len), parts)
+
+
+def phase_serve_rwkv():
+    """``serve("rwkv6-3b", ...)`` at the published config, whole: no
+    kernel of the port is on this path; then the prefill's device time
+    split into the WKV chunks, the channel mix and the rest."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models import rwkv
+    from repro_torch.models.transformer import (init_params,
+                                                prefill_with_cache)
+    p = RWKV_SERVE
+    t_phase = time.perf_counter()
+    cfg = get_config(p["arch"])
+    out, wall, peak, launches = _serve_timed(serve, p["arch"], p)
+    line = _serve_line("serve:rwkv", cfg, out, wall, peak, launches)
+    check(all(n == 0 for n in launches.values()),
+          f"serve:rwkv: a kernel was launched on a path without "
+          f"attention: {launches}")
+    del out
+    torch.cuda.empty_cache()
+
+    b, t, max_len = p["batch"], p["prompt_len"], p["prompt_len"] + p["gen"]
+    with torch.inference_mode():
+        params = init_params(p["seed"], cfg, device=DEVICE)
+        prompts = make_prompts(cfg, b, t, p["seed"], DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        hd = cfg.rwkv_head_size
+        shape = (b, t, cfg.d_model // hd, hd)
+        r, k, v = (torch.randn(shape, generator=gen, device=DEVICE)
+                   for _ in range(3))
+        lw = torch.clamp(-torch.exp(torch.randn(shape, generator=gen,
+                                                device=DEVICE)),
+                         rwkv.LOG_W_MIN, rwkv.LOG_W_MAX)
+        s0 = torch.zeros((b, cfg.d_model // hd, hd, hd), device=DEVICE)
+        layer = params.layers[0]
+        c = min(cfg.time_chunk, t)
+        x = _rms1(gen, (b, t, cfg.d_model), cfg.torch_dtype)
+        n = cfg.n_layers
+        split = prefill_split(
+            lambda: prefill_with_cache(params, prompts, cfg, max_len),
+            {"wkv_chunks": (lambda: rwkv._wkv(r, k, v, lw, layer.mixer["u"],
+                                              s0, c), n),
+             "channel_mix": (lambda: rwkv.rwkv_channel_mix(layer.ffn, x),
+                             n)})
+        del r, k, v, lw, s0, x, params, prompts
+    torch.cuda.empty_cache()
+    line.update(prefill_split=split, phase_s=time.perf_counter() - t_phase)
+    emit(line)
+
+
+def _snapshot(caches):
+    """The caches' tensors, copied to the CPU: {(layer, kind, name): t}."""
+    return {(i, kind, name): t.detach().to("cpu", copy=True)
+            for i, c in enumerate(caches) for kind, leaves in c.items()
+            for name, t in leaves.items()}
+
+
+def _lm_run(params, prompts, cfg, steps, tokens=None):
+    """The prefill and ``steps`` greedy decode steps on ``params``'s
+    device: logits and cache snapshots per step (on the CPU), the MoE
+    plans, and the tokens fed (``tokens``, else each step's argmax)."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step, prefill_with_cache
+    from repro_torch.testing import moe_routes
+    dev = prompts.device
+    t = prompts.shape[1]
+    logits_log, cache_log, fed = [], [], []
+    with torch.inference_mode(), moe_routes() as routes:
+        logits, caches = prefill_with_cache(params, prompts, cfg, t + steps)
+        for i in range(steps + 1):
+            logits_log.append(logits[:, -1].float().cpu())
+            cache_log.append(_snapshot(caches))
+            if i == steps:
+                break
+            tok = (tokens[i] if tokens is not None else
+                   torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+                   .cpu())
+            fed.append(tok)
+            logits, caches = decode_step(params, tok.to(dev), caches, t + i,
+                                         cfg)
+        plans = [tuple(a.cpu() for a in r[:5]) for r in routes]
+    return logits_log, cache_log, plans, fed
+
+
+def phase_lm_parity():
+    """Each LM_PARITY case at float32 on the card and on the CPU from
+    the same seeded weights and prompts: prefill logits and caches, then
+    ``steps`` decode steps fed the CPU's tokens, every logit and cache
+    within tol, every MoE plan equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.transformer import init_params
+    p = LM_PARITY
+    t_phase = time.perf_counter()
+    cases = []
+    for arch, smoke, over, b in p["cases"]:
+        base = get_smoke_config(arch) if smoke else get_config(arch)
+        cfg = dataclasses.replace(base, dtype="float32", **over)
+        cpu = init_params(p["seed"], cfg, device="cpu")
+        prompts = make_prompts(cfg, b, p["t"], p["seed"], "cpu")
+        prompts[:, -p["run"]:] = prompts[:, :1]
+        t0 = time.perf_counter()
+        want = _lm_run(cpu, prompts, cfg, p["steps"])
+        cpu_s = time.perf_counter() - t0
+        card = cpu.to(DEVICE)
+        reset_launches()
+        t0 = time.perf_counter()
+        got = _lm_run(card, prompts.to(DEVICE), cfg, p["steps"],
+                      tokens=want[3])
+        card_s = time.perf_counter() - t0
+        launches = read_launches()
+        del cpu, card
+        label = f"lm:parity {arch}"
+        n_attn = sum(cfg.layer_kind(i)[0] == "attn"
+                     for i in range(cfg.n_layers))
+        check(launches["flash_attention_f32"] == n_attn and
+              launches["flash_attention"] == 0,
+              f"{label}: K4 launches {launches}, expected {n_attn} of the "
+              f"float32 route (one prefill)")
+        logits_err = max(float((g - w).abs().max())
+                         for g, w in zip(got[0], want[0]))
+        cache_err = max(float((g[key].float() - w[key].float()).abs().max())
+                        for g, w in zip(got[1], want[1]) for key in w)
+        check(logits_err <= p["tol"] and cache_err <= p["tol"],
+              f"{label}: card vs CPU logits {logits_err}, caches "
+              f"{cache_err} beyond {p['tol']}")
+        check(len(got[2]) == len(want[2]), f"{label}: {len(got[2])} MoE "
+              f"plans on the card, {len(want[2])} on the CPU")
+        routes_equal = all(torch.equal(g, w) for gp, wp in
+                           zip(got[2], want[2])
+                           for i, (g, w) in enumerate(zip(gp, wp))
+                           if i != 2)                    # 2: the weights
+        check(routes_equal, f"{label}: an MoE route differs between the "
+                            f"card and the CPU")
+        dropped = sum(int((~wp[4]).sum()) for wp in want[2])
+        if cfg.moe_experts and cfg.capacity_factor < cfg.moe_experts:
+            check(dropped > 0, f"{label}: no token dropped at capacity "
+                               f"factor {cfg.capacity_factor}")
+        cases.append({"arch": arch, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "batch": b, "t": p["t"],
+                      "decode_steps": p["steps"],
+                      "capacity_factor": cfg.capacity_factor,
+                      "logits_max_abs": logits_err,
+                      "caches_max_abs": cache_err,
+                      "moe_plans": len(want[2]), "moe_dropped": dropped,
+                      "launches": launches, "card_s": card_s,
+                      "cpu_s": cpu_s})
+    torch.cuda.empty_cache()
+    emit({"phase": "lm:parity", "dtype": "float32", "tol": p["tol"],
+          "cases": cases, "phase_s": time.perf_counter() - t_phase})
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
@@ -3681,6 +4121,9 @@ def main(argv) -> int:
     phase_train_parity()
     phase_train()
     phase_train_checkpoint()
+    phase_serve_hybrid()
+    phase_serve_rwkv()
+    phase_lm_parity()
     kernels = []
     for rec, launches, name, source, replaces in (
             (k1, main_run["launches"], "qap_objective",

@@ -18,6 +18,8 @@ device.  The port never imports ``repro``: the caller does the
     perm  = convert.perm(np.asarray(perm_ref), "cuda")
     model = convert.lm_params(jax.tree.map(np.asarray, params_ref), cfg,
                               "cuda")
+    caches = convert.lm_caches(jax.tree.map(np.asarray, caches_ref), cfg,
+                               "cuda")
     state = convert.train_state(jax.tree.map(np.asarray, state_ref), cfg,
                                 "cuda")
 """
@@ -30,7 +32,8 @@ from .core.graph import CommGraph, DeviceGraph
 from .core.spec import MappingSpec, PlanSpec, TopologySpec
 from .runtime.device import resolve_device
 
-__all__ = ["device_graph", "graph", "lm_params", "pairs", "perm",
+__all__ = ["device_graph", "graph", "lm_caches", "lm_params", "pairs",
+           "perm",
            "plan_spec", "spec", "topology", "topology_from_matrix",
            "train_state"]
 
@@ -116,7 +119,10 @@ def lm_params(tree: dict, cfg, device=None):
     (``embeddings`` and ``periods[pos][name]`` stacked over n_periods) →
     the port's :class:`~repro_torch.models.transformer.Transformer` on
     ``device``.  Layer i = period·p + pos takes ``periods[pos]`` at index
-    ``period``."""
+    ``period``; its kind is ``cfg.layer_kind(i)``, and every leaf keeps
+    its type: a bfloat16 model's float32 leaves (Mamba ``a_log`` and
+    ``d_skip``, RWKV ``w0`` and ``u``, the MoE ``router``) stay
+    float32."""
     from .models.transformer import Transformer
     dev = resolve_device(device)
     p = cfg.period
@@ -133,6 +139,24 @@ def lm_params(tree: dict, cfg, device=None):
                         for k, a in src["ffn"].items()}}
 
     return Transformer(cfg, emb, [layer(i) for i in range(cfg.n_layers)])
+
+
+def lm_caches(tree: list, cfg, device=None) -> list:
+    """The JAX package's decode caches (``init_caches``,
+    ``prefill_with_cache``, ``decode_step``: one dict per period position,
+    every leaf stacked over n_periods), as numpy arrays → the port's, one
+    dict per layer (``attn`` {k, v}, ``mamba`` {conv, ssm}, ``rwkv``
+    {x, s}, ``cmix`` {x}) on ``device``, with the layer mapping of
+    :func:`lm_params`."""
+    dev = resolve_device(device)
+    p = cfg.period
+    out = []
+    for i in range(cfg.n_layers):
+        period, pos = divmod(i, p)
+        out.append({kind: {name: _lm_tensor(a[period], dev)
+                           for name, a in leaves.items()}
+                    for kind, leaves in tree[pos].items()})
+    return out
 
 
 def train_state(tree: dict, cfg, device=None) -> dict:

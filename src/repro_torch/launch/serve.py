@@ -10,9 +10,11 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --placement-smoke \
         [--device cpu]
 
-The prefill's attention is K4 on the card (its plain version on the
-CPU).  The decode loop stays on the device: the next token is an argmax
-on the device fed straight into the next step, and nothing is read back
+Every shipped config serves, whatever its layer kinds (attention,
+Mamba or RWKV mixers; MLP, MoE or channel-mix FFNs).  The prefill's
+attention is K4 on the card (its plain version on the CPU).  The decode
+loop stays on the device: the next token is an argmax on the device fed
+straight into the next step, and nothing is read back
 to the host until the final ``tokens``.  On CUDA a second, untimed pass
 of the loop runs inside a ``host_boundary`` scope, which counts the syncs
 PyTorch sees there (``decode_syncs``).
@@ -51,7 +53,8 @@ from ..runtime.boundary import host_boundary
 from ..runtime.device import resolve_device
 from ..train.steps import serve_step
 
-__all__ = ["MappingService", "make_prompts", "placement_service", "serve"]
+__all__ = ["MappingService", "make_prompts", "placement_service", "serve",
+           "serve_model"]
 
 _TR = get_tracer()
 
@@ -71,13 +74,22 @@ def _sync(device) -> None:
 
 def serve(arch: str, batch: int, prompt_len: int, gen: int,
           smoke: bool = False, seed: int = 0, device=None) -> dict:
+    """:func:`serve_model` of ``arch``'s config (its smoke config with
+    ``smoke``): every shipped config, of any layer kind, runs through the
+    same code."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    return serve_model(cfg, batch, prompt_len, gen, seed=seed,
+                       device=device)
+
+
+def serve_model(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
+                device=None) -> dict:
     """Random weights and prompts from ``seed`` (both, as the JAX package
     uses one key for both), one prefill of ``batch`` prompts and ``gen``
     greedy tokens each.  Returns ``tokens`` (batch, gen) int32 on the
     device, ``prefill_s``, ``decode_s``, ``decode_tok_per_s`` and
     ``decode_syncs`` (None off CUDA)."""
     dev = resolve_device(device)
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
     with torch.inference_mode():
         params = init_params(seed, cfg, device=dev)
         max_len = prompt_len + gen
@@ -103,8 +115,9 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int,
         _sync(dev)
         t_decode = time.perf_counter() - t0
         # the syncs are counted on a second pass of the same loop (same
-        # steps, tokens discarded), so the debug mode that counts them
-        # stays out of the timed pass
+        # steps and shapes, tokens discarded; the recurrent layers' states
+        # go on from where the first pass left them), so the debug mode
+        # that counts them stays out of the timed pass
         with host_boundary("serve.decode", dev) as hb:
             if dev.type == "cuda":
                 decode(next_tok)
@@ -595,8 +608,8 @@ def _placement_smoke(device=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Prefill + greedy decode of a randomly initialised "
-                    "dense LM on the port, or the placement service's "
-                    "smoke run.")
+                    "LM on the port, or the placement service's smoke "
+                    "run.")
     ap.add_argument("--arch")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

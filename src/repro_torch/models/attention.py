@@ -10,7 +10,9 @@ Layouts are the JAX package's: projections wq (d, H, hd), wk and wv
     flash_attention_kernel`) for both :func:`attention_block` and the
     model's prefill; on one card there is no mesh, so the JAX package's
     pure-JAX blocked ``flash_attention`` and its sharded Pallas branch
-    collapse into this one core (CPU tensors take K4's plain version),
+    collapse into this one core (CPU tensors take K4's plain version);
+    a prefill continuation (``q_offset`` ≠ 0) attends through
+    :func:`blocked_flash_attention`, the reference's blocked core,
   * training (``attention_block(..., train=True)``) differentiates
     through :func:`blocked_flash_attention`, a torch-ops twin of the
     JAX package's blocked ``flash_attention`` — the core the reference
@@ -64,16 +66,16 @@ def _qkv(params, x, positions, cfg):
 
 
 def flash_attention(q, k, v, cfg, q_offset: int = 0):
-    """Causal (optionally sliding-window) attention through K4.
+    """Causal (optionally sliding-window) attention.
 
-    q: (B, T, H, hd); k, v: (B, T, KV, hd).  Returns (B, T, H, hd).  A
-    prefill continuation (``q_offset`` ≠ 0) is not ported: nothing on the
-    serving path uses it."""
-    if q_offset:
-        raise NotImplementedError(
-            f"flash_attention: q_offset={q_offset} (prefill continuation) "
-            f"is not ported; K4 attends positions 0..T-1 of q over the same "
-            f"positions of k and v")
+    q: (B, T, H, hd); k, v: (B, S, KV, hd).  ``q_offset``: the position
+    of q[0] within the keys (a prefill continuation).  Returns (B, T, H,
+    hd).  Self-attention (q_offset 0, S = T) runs through K4; a
+    continuation through :func:`blocked_flash_attention`, as the
+    reference serves it through its blocked core (its Pallas kernel has
+    no offset either)."""
+    if q_offset or k.shape[1] != q.shape[1]:
+        return blocked_flash_attention(q, k, v, cfg, q_offset=q_offset)
     return flash_attention_kernel(q.contiguous(), k.contiguous(),
                                   v.contiguous(), window=cfg.sliding_window)
 
@@ -100,23 +102,24 @@ def _blocks(t: int, s_len: int, cfg):
     return qb, kb, s_len // kb, 0, s_len
 
 
-def blocked_flash_attention(q, k, v, cfg):
+def blocked_flash_attention(q, k, v, cfg, q_offset: int = 0):
     """Causal (optionally sliding-window) blocked attention in torch ops,
     differentiable through autograd: the JAX package's
     ``flash_attention`` (``models/attention.py:75``, ``_online_block``
-    ``:61``) for self-attention (q_offset 0).
+    ``:61``).
 
-    q: (B, T, H, hd); k, v: (B, T, KV, hd).  Returns (B, T, H, hd) in q's
-    type.  Each q block of ``qb`` rows runs an online softmax over
+    q: (B, T, H, hd); k, v: (B, S, KV, hd); ``q_offset``: the position of
+    q[0] within the keys.  Returns (B, T, H, hd) in q's type.  Each q
+    block of ``qb`` rows runs an online softmax over
     ``n_kb`` kv blocks of ``kb`` keys, as the reference does: scores
     q·kᵀ in the inputs' type, then float32 and scaled, masked −1e30;
     running max, sum and accumulator in float32; p cast to v's type
     before p·v.  Every q block visits every kv block of its span, fully
     masked ones included.  With a window, q block i's span starts at
-    max(0, (i + 1)·qb − span); a kv block that would run past the keys
-    reads the last ``kb`` keys, while its mask keeps the unclamped
-    positions (the reference's ``dynamic_slice`` clamps the slice, not
-    the positions).
+    max(0, q_offset + (i + 1)·qb − span); a kv block that would run past
+    the keys reads the last ``kb`` keys, while its mask keeps the
+    unclamped positions (the reference's ``dynamic_slice`` clamps the
+    slice, not the positions).
 
     The q blocks run side by side (a block axis n): each block's
     arithmetic is the reference's, and one kv step is one launch of each
@@ -134,13 +137,18 @@ def blocked_flash_attention(q, k, v, cfg):
     qg = q.reshape(b, n_qb, qb, kvh, g, hd).permute(0, 3, 4, 1, 2, 5)
     kg = k.permute(0, 2, 1, 3)
     vg = v.permute(0, 2, 1, 3)
-    # each q block's span starts at max(0, (i + 1)·qb − span), 0 without
-    # a window (span = S); as host ints for the slices, on the device for
-    # the masks
-    starts = [max(0, (i + 1) * qb - span) for i in range(n_qb)]
-    start_pos = torch.clamp(torch.arange(1, n_qb + 1, device=dev) * qb
-                            - span, min=0)
-    q_pos = torch.arange(t, device=dev).reshape(n_qb, qb)
+    # each q block's span starts at max(0, q_offset + (i + 1)·qb − span)
+    # with a window, at 0 without one; as host ints for the slices, on
+    # the device for the masks
+    if window:
+        starts = [max(0, q_offset + (i + 1) * qb - span)
+                  for i in range(n_qb)]
+        start_pos = torch.clamp(torch.arange(1, n_qb + 1, device=dev) * qb
+                                + (q_offset - span), min=0)
+    else:
+        starts = [0] * n_qb
+        start_pos = torch.zeros(n_qb, dtype=torch.int64, device=dev)
+    q_pos = (torch.arange(t, device=dev) + q_offset).reshape(n_qb, qb)
 
     m = torch.full((b, kvh, g, n_qb, qb), NEG_INF, dtype=f32, device=dev)
     l = torch.zeros((b, kvh, g, n_qb, qb), dtype=f32, device=dev)

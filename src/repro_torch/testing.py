@@ -3,6 +3,8 @@
 :func:`tensors_in` counts the torch tensors a result still holds (what
 the mapping service hands out must hold none); :func:`pair_gain_lanes`
 records the lane count of every K2 launch while it is entered;
+:func:`moe_routes` records every MoE dispatch plan while it is entered,
+and :func:`moe_replay` hands recorded plans back to the MoE layers;
 :func:`warm_cpu_math` runs the CPU's vector math once before a CPU
 reference is computed.
 
@@ -15,7 +17,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
-__all__ = ["pair_gain_lanes", "tensors_in", "warm_cpu_math"]
+__all__ = ["moe_replay", "moe_routes", "pair_gain_lanes", "tensors_in",
+           "warm_cpu_math"]
 
 
 def tensors_in(obj) -> int:
@@ -53,6 +56,52 @@ def pair_gain_lanes():
         yield lanes
     finally:
         del PAIR_GAIN_KERNEL.launch
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Yield a list that receives every MoE dispatch plan made inside the
+    block: ``models.moe._route``'s outputs (se, st, sw, pos, keep, order,
+    aux), device tensors, nothing read back."""
+    from .models import moe
+    orig = moe._route
+    log = []
+
+    def recording(*a, **kw):
+        out = orig(*a, **kw)
+        log.append(out)
+        return out
+
+    moe._route = recording
+    try:
+        yield log
+    finally:
+        moe._route = orig
+
+
+@contextlib.contextmanager
+def moe_replay(plans):
+    """Inside the block, each MoE layer takes the next of ``plans`` (as
+    :func:`moe_routes` recorded them, in order) in place of routing its
+    own tokens: two runs of one model that differ in their last bits (an
+    attention kernel against its plain version) then route alike, where
+    a near tie between two experts would otherwise move a token to
+    another expert.  Raises if the block asks for more plans than
+    given."""
+    from .models import moe
+    orig = moe._route
+    pending = list(plans)
+
+    def replay(*a, **kw):
+        if not pending:
+            raise RuntimeError("moe_replay: more MoE layers than plans")
+        return pending.pop(0)
+
+    moe._route = replay
+    try:
+        yield
+    finally:
+        moe._route = orig
 
 
 def warm_cpu_math() -> None:

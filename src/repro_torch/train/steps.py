@@ -25,13 +25,29 @@ from .optimizer import (OptConfig, adamw_update, init_opt_state,
                         named_params)
 
 __all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
-           "default_microbatches", "init_train_state", "prefill_step",
-           "serve_step", "train_step"]
+           "check_trainable", "default_microbatches", "init_train_state",
+           "prefill_step", "serve_step", "train_step"]
+
+
+def check_trainable(cfg) -> None:
+    """Raise ``NotImplementedError`` if ``cfg`` has a MoE, Mamba or RWKV
+    layer: the port trains attention + MLP layers (with or without a
+    modality frontend) only."""
+    kinds = sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)}
+                   - {("attn", "mlp")})
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {kinds}; training through the MoE, "
+            f"Mamba and RWKV kinds waits for ROADMAP queue 1 item 7 (its "
+            f"training part, gated on jax.grad of the reference); the port "
+            f"serves them")
 
 
 def init_train_state(seed: int, cfg, device=None):
     """Random parameters from ``seed`` (``init_params``), made trainable,
-    zero moments and step 0."""
+    zero moments and step 0.  Attention + MLP configs only
+    (:func:`check_trainable`)."""
+    check_trainable(cfg)
     params = init_params(seed, cfg, device=device)
     params.requires_grad_(True)
     opt = init_opt_state(params)
@@ -63,7 +79,9 @@ def train_step(state, batch, cfg, opt: OptConfig, microbatches: int = 1,
 
     Updates ``state`` in place and returns (state, metrics); every
     metric (``ce``, ``aux``, ``tokens``, ``loss``, ``grad_norm``,
-    ``lr``) is a device tensor."""
+    ``lr``) is a device tensor.  Attention + MLP configs only
+    (:func:`check_trainable`)."""
+    check_trainable(cfg)
     params = state["params"]
     named = named_params(params)
     names, leaves = list(named), list(named.values())

@@ -697,6 +697,95 @@ def test_serve_on_card_makes_no_decode_sync(cuda):
     assert out["tokens"].shape == (2, 8) and out["tokens"].is_cuda
 
 
+# ------------------------------------------ the MoE, Mamba and RWKV kinds
+# smoke configs at float32; jamba at 2 periods and the production
+# capacity factor, its prompts ending in a run of one token so that the
+# MoE drops tokens (chip_smoke.LM_PARITY's cases at smoke width)
+KIND_CASES = {"jamba": ("jamba-v0.1-52b",
+                        {"n_layers": 16, "capacity_factor": 1.25}),
+              "mixtral": ("mixtral-8x7b", {}), "rwkv": ("rwkv6-3b", {})}
+
+
+@pytest.mark.parametrize("case", sorted(KIND_CASES))
+def test_layer_kinds_on_card_equal_cpu(cuda, case):
+    """One prefill and 2 decode steps of each new layer kind at float32
+    on the card against the CPU from the same weights, both fed the
+    CPU's tokens: logits and every cache within 1e-4 (TF32 off), every
+    MoE plan (expert, token, slot, kept) equal, and 0 host syncs inside
+    each decode step (its token uploaded before the counted scope)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill_with_cache)
+    from repro_torch.runtime.boundary import host_boundary
+    from repro_torch.testing import moe_routes
+    arch, over = KIND_CASES[case]
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              **over)
+    cpu = init_params(0, cfg, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = make_prompts(cfg, 2, 96, 0, "cpu")
+    toks[:, -32:] = toks[:, :1]
+    t = toks.shape[1]
+
+    def close(got, want):
+        assert float((got.cpu().float() - want.float()).abs().max()) <= 1e-4
+
+    def close_caches(got, want):
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for kind in g:
+                for name in g[kind]:
+                    close(g[kind][name], w[kind][name])
+
+    with torch.inference_mode(), moe_routes() as plans_cpu:
+        want, want_c = prefill_with_cache(cpu, toks, cfg, t + 2)
+    with torch.inference_mode(), moe_routes() as plans_card:
+        got, got_c = prefill_with_cache(card, toks.to(cuda), cfg, t + 2)
+    close(got, want)
+    close_caches(got_c, want_c)
+    for i in range(2):
+        tok = torch.argmax(want[:, -1:], dim=-1).to(torch.int32)
+        tok_card = tok.to(cuda)
+        with torch.inference_mode():
+            with moe_routes() as plans:
+                want, want_c = decode_step(cpu, tok, want_c, t + i, cfg)
+            plans_cpu += plans
+            with host_boundary("test.decode", cuda) as hb, \
+                    moe_routes() as plans:
+                got, got_c = decode_step(card, tok_card, got_c, t + i, cfg)
+            plans_card += plans
+        assert hb.syncs == 0
+        close(got, want)
+        close_caches(got_c, want_c)
+    assert len(plans_card) == len(plans_cpu)
+    for g, w in zip(plans_card, plans_cpu):
+        for i in (0, 1, 3, 4):                   # expert, token, slot, kept
+            assert torch.equal(g[i].cpu(), w[i])
+    if cfg.moe_experts and cfg.capacity_factor < cfg.moe_experts:
+        assert sum(int((~w[4]).sum()) for w in plans_cpu) > 0
+
+
+def test_serve_layer_kinds_on_card_make_no_decode_sync(cuda):
+    """``serve`` of the jamba and rwkv smoke configs (bf16) on the card:
+    K4 launched once per attention layer of the prefill, 0 host syncs in
+    the decode loop."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve
+    for arch in ("jamba-v0.1-52b", "rwkv6-3b"):
+        cfg = get_smoke_config(arch)
+        n_attn = sum(cfg.layer_kind(i)[0] == "attn"
+                     for i in range(cfg.n_layers))
+        before = _flash_launches()
+        out = serve(arch, batch=2, prompt_len=100, gen=6, smoke=True)
+        assert _flash_launches() == (before[0] + n_attn, before[1])
+        assert out["decode_syncs"] == 0
+        assert out["tokens"].shape == (2, 6) and out["tokens"].is_cuda
+
+
 # ------------------------------------------------------------- lane axis
 def _lane_graphs(real):
     """Four graphs on N vertices with different E and ELL widths: K = 6

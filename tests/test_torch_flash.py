@@ -27,6 +27,8 @@ tensors) against the JAX package's flash attention, on the CPU.
     TF32 pass, p permuted without vᵀ) exceed it.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,7 +45,9 @@ from repro_torch.kernels import FLASH_KERNEL, flash_attention_kernel
 from repro_torch.kernels.flash_attention import (FLASH_SM90_TILES,
                                                 FLASH_TILE, LOG2E)
 from repro_torch.kernels.ref import flash_attention_plain, flash_bf16_limits
-from repro_torch.models.attention import flash_attention
+from repro_torch.models import attention as tattn
+from repro_torch.models.attention import (blocked_flash_attention,
+                                         flash_attention)
 
 TOL = {"float32": 2e-5, "bfloat16": 0.05}
 
@@ -104,10 +108,64 @@ def test_window_skipping_whole_leading_tiles(t, win):
 
 
 def test_q_offset_raises_on_cpu():
+    """K4 attends positions 0..T−1 of q over the same positions of k and
+    v, and its wrapper raises on a prefill continuation's shapes (S ≠ T);
+    ``flash_attention(q_offset=...)`` never reaches it and attends
+    through the blocked core instead."""
     cfg = get_smoke_config("granite-3-8b")
-    _, (q, k, v) = _qkv(1, 64, 4, 2, 32, 0)
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        flash_attention(q, k, v, cfg, q_offset=1)
+    (_, _, _), (q, k, v) = _qkv(1, 96, 4, 2, 32, 0)
+    q = q[:, 64:]
+    with pytest.raises(ValueError):
+        flash_attention_kernel(q, k, v)
+    before = FLASH_KERNEL.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tattn, "flash_attention_kernel", _refuse)
+        got = flash_attention(q, k, v, cfg, q_offset=64)
+    assert FLASH_KERNEL.launches == before
+    assert torch.equal(got, blocked_flash_attention(q, k, v, cfg,
+                                                    q_offset=64))
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a continuation reached K4")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 64, 40], ids=["full", "w64", "w40"])
+@pytest.mark.parametrize("q_offset,t", [(32, 64), (64, 64), (64, 32),
+                                        (32, 96)])
+def test_q_offset_matches_the_reference(q_offset, t, window, dtype):
+    """A prefill continuation — q at positions q_offset..q_offset+T−1
+    over keys 0..S−1, S = q_offset + T — through the port's
+    ``flash_attention`` against the reference's blocked core, with and
+    without a window (40: a span of window + q block that the kv block
+    does not divide, so the blocks are halved).
+
+    Where the span is no longer than the keys, the continuation's rows
+    equal the same rows of the whole prefill.  Where it is longer (window
+    64, q_offset 32, T 64: span 128 over 96 keys), the reference's
+    ``dynamic_slice`` clamps the last kv block back onto keys 32..95
+    while its mask labels them 64..127, so keys 64..95 are never
+    attended as themselves: the reference's fault (ROADMAP queue 3),
+    which the port copies, as it must to equal the reference."""
+    jcfg = dataclasses.replace(jax_smoke_config("granite-3-8b"),
+                               sliding_window=window)
+    tcfg = dataclasses.replace(get_smoke_config("granite-3-8b"),
+                               sliding_window=window)
+    s_len = q_offset + t
+    (qj, kj, vj), (qt, kt, vt) = _qkv(2, s_len, jcfg.n_heads,
+                                      jcfg.n_kv_heads, jcfg.head_dim_,
+                                      q_offset + t + window, dtype)
+    want = jax_flash(qj[:, q_offset:], kj, vj, jcfg, q_offset=q_offset)
+    got = flash_attention(qt[:, q_offset:].contiguous(), kt, vt, tcfg,
+                          q_offset=q_offset)
+    assert got.shape == (2, t, jcfg.n_heads, jcfg.head_dim_)
+    assert got.dtype == qt.dtype
+    assert _err(got, want) < TOL[dtype]
+    span = tattn._blocks(t, s_len, tcfg)[4]
+    if span <= s_len:
+        whole = flash_attention_plain(qt, kt, vt, window=window)
+        assert _err(got, whole[:, q_offset:].float().numpy()) < TOL[dtype]
 
 
 @pytest.mark.parametrize("shapes", [

@@ -39,7 +39,8 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.flash_attention",
             "repro_torch.configs.base", "repro_torch.configs.granite_3_8b",
             "repro_torch.models.layers", "repro_torch.models.attention",
-            "repro_torch.models.transformer", "repro_torch.train.steps",
+            "repro_torch.models.transformer", "repro_torch.models.moe",
+            "repro_torch.models.mamba", "repro_torch.models.rwkv", "repro_torch.train.steps",
             "repro_torch.launch.serve", "repro_torch.portfolio.kicks",
             "repro_torch.portfolio.search",
             "repro_torch.analysis.hlo", "repro_torch.analysis.roofline",

@@ -24,6 +24,10 @@ Tolerances:
     0.0100) on these weights at T = 96, and the port differs from the
     Pallas core by 0.066 (mean 0.0087)
     (``test_bf16_tolerance_covers_the_references_own_spread``).
+
+The MoE, Mamba and RWKV configs and the two frontend configs, whole
+model, are ``tests/test_torch_lm_kinds.py``; their layers are
+``tests/test_torch_{moe,mamba,rwkv}.py``.
 """
 
 import dataclasses
@@ -40,7 +44,7 @@ from repro.models import layers as jl
 from repro.models import transformer as jt
 from repro.train.steps import serve_step as jax_serve_step
 from repro_torch import convert
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCHS, get_smoke_config
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve
 from repro_torch.models import attention as ta
@@ -333,14 +337,38 @@ def test_default_device_is_cuda():
         serve(ARCH, batch=1, prompt_len=8, gen=2, smoke=True)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b",
-                                  "mixtral-8x7b", "llava-next-34b"])
-def test_unsupported_layer_kinds_raise(arch):
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mixtral-8x7b",
+                                  "rwkv6-3b"])
+def test_training_refuses_unported_layer_kinds(arch):
+    """The port serves the MoE, Mamba and RWKV kinds but does not train
+    through them yet (ROADMAP queue 1 item 7): ``init_train_state`` and
+    ``train_step`` raise, naming the item."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import init_train_state, train_step
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tt.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tt.init_caches(1, cfg, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        init_train_state(0, cfg, device="cpu")
+    state = {"params": tt.init_params(0, cfg, device="cpu")}
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
+             "labels": torch.zeros((1, 8), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        train_step(state, batch, cfg, OptConfig())
+    tt.init_caches(1, cfg, 8, device="cpu")          # serving builds
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_every_shipped_arch_on_cpu(arch):
+    """``serve`` runs every shipped config at its smoke width through the
+    same code, tokens inside the vocabulary and seeded."""
+    out = serve(arch, batch=2, prompt_len=24, gen=3, smoke=True, seed=1,
+                device="cpu")
+    cfg = get_smoke_config(arch)
+    tok = out["tokens"]
+    assert tok.shape == (2, 3) and tok.dtype == torch.int32
+    assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size
+    again = serve(arch, batch=2, prompt_len=24, gen=3, smoke=True, seed=1,
+                  device="cpu")
+    assert torch.equal(tok, again["tokens"])
 
 
 # --------------------------------------------- where the tolerances stand
