@@ -239,17 +239,17 @@ one JSON line after each, failing loudly on the first fault:
               Frobenius error per tensor; K4 launched 0 times (training
               attends through the blocked twin), no host sync inside a
               step.
-20. train   — ``launch.train.train("granite-3-2b", steps=4,
+20. train   — ``launch.train.train("granite-3-2b", steps=3,
               global_batch=4, seq_len=4096, microbatches=4)`` at the
               full published config (40 layers, bf16, remat "full",
               2.635 B parameters, seeded random weights) with the launch
               counts set to 0 just before and read just after: every loss
               and grad norm finite, the first loss within 1.0 of ln V,
-              step 4, m nonzero in every tensor and every matrix moved,
+              step 3, m nonzero in every tensor and every matrix moved,
               K4 launched 0 times, 0 host syncs inside every step (sync
               debug mode through ``host_boundary``), the batch uploads
               syncless and the log reads counted.  Prints the per-step
-              seconds (median of steps 2–4), tokens/s, MFU against the
+              seconds (median of steps 2–3), tokens/s, MFU against the
               bf16 dense peak, peak memory, the losses, and one more
               step's device time split (``train_split``) into the
               blocked attention, the other matmuls, AdamW and the rest.
@@ -287,6 +287,37 @@ one JSON line after each, failing loudly on the first fault:
               tokens: logits and every cache within 1e-4, every MoE route
               (expert, token, slot, kept or dropped) equal, K4's float32
               route once per attention layer.
+25–27. train:rwkv, train:moe, train:hybrid — training through the new
+              layer kinds at full width (TRAIN_KINDS), bf16, remat
+              "full", 3 steps through ``launch.train.train_model`` (what
+              ``launch.train.train`` drives, with the config from
+              ``dataclasses.replace``) with the launch counts set to 0
+              just before and read just after: rwkv6-3b whole (2 × 1024
+              tokens, 1 microbatch); mixtral-8x7b at 2 of 32 layers
+              (4 × 4096, 4 microbatches); jamba-v0.1-52b at one period
+              with 2 of 16 experts (4 × 1024, 4 microbatches).  Checks:
+              finite losses, the first within 1.0 of ln V, every matrix
+              moved, no all-zero m, 0 host syncs inside every step
+              (backward included), no kernel of the port launched (the
+              training route attends through the blocked twin).  Prints
+              step seconds (median of steps 2–3), tokens/s, MFU, peak
+              memory, the MoE's dropped assignments, and one more step's
+              device time split into the Mamba scan, the MoE's route,
+              dispatch, experts and combine, the WKV chunks, the channel
+              mix, the blocked attention, AdamW and the rest, with the
+              idle share.
+28. train:kinds-parity — the card against the CPU at float32
+              (TRAIN_KINDS_PARITY): jamba's smoke width at 16 layers and
+              capacity factor 1.25, mixtral's smoke width, rwkv6-3b's
+              published width at 2 layers; B 2 × T 128, two
+              ``train_step`` calls at microbatches 2: loss and grad
+              norm, and per key the
+              parameters, m and v (the largest relative Frobenius error
+              of a tensor) within 1e-5, or within 2.5× the steps' own
+              float32 error against the same steps in float64 where
+              that is larger (the largest of three samples: the CPU's,
+              and the CPU's and the card's at microbatches 1); every MoE
+              route equal, drops on jamba.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 K4 one per route: route, source, the TPU kernel it replaces, launches on
@@ -3251,8 +3282,9 @@ def phase_serve(k4_serve_ms):
 # the training path at granite-3-2b's full width: the train phase at full
 # depth through launch.train (the train_4k sequence length; 4
 # microbatches, what default_microbatches gives on one card, passed
-# explicitly as the reference's train() defaults to 1)
-TRAIN = {"arch": "granite-3-2b", "steps": 4, "batch": 4, "seq": 4096,
+# explicitly as the reference's train() defaults to 1); 3 steps (4 until
+# the train phases of the new layer kinds joined the run's time limit)
+TRAIN = {"arch": "granite-3-2b", "steps": 3, "batch": 4, "seq": 4096,
          "microbatches": 4, "peak": PEAK_BF16}
 # train:parity (float32) and train:checkpoint (bf16): full width, 2
 # layers, batch 4 × 256 tokens in 2 microbatches, seeded weights and
@@ -3560,7 +3592,7 @@ def phase_train():
           "losses": [r["loss"] for r in log],
           "grad_norms": [r["grad_norm"] for r in log],
           "lrs": [r["lr"] for r in log], "step_s": times,
-          "median_step_s_2_to_4": step_s, "tokens_per_s": tokens / step_s,
+          "median_step_s_2_to_3": step_s, "tokens_per_s": tokens / step_s,
           "mfu": flops / step_s / p["peak"],
           "model_flops_per_step": flops,
           "max_memory_allocated": peak, "train_call_s": wall,
@@ -3572,9 +3604,10 @@ def phase_train():
 
 
 def phase_train_checkpoint():
-    """The train:parity shape in bf16: 2 steps, ``save_async``, 2 more
-    (A); a fresh state restored from step 2 and 2 more (B); the same 4
-    steps uninterrupted (C), for the card's spread."""
+    """The train:parity shape in bf16: 2 steps, ``save_async`` (in the
+    JAX package's tree, ``convert.reference_tree``), 2 more (A); a fresh
+    state restored from step 2 and 2 more (B); the same 4 steps
+    uninterrupted (C), for the card's spread."""
     import dataclasses
     import shutil
 
@@ -3582,6 +3615,7 @@ def phase_train_checkpoint():
 
     from repro_torch.checkpoint.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
+    from repro_torch.convert import reference_tree
     from repro_torch.launch.train import MESH_SHAPE
     from repro_torch.train import OptConfig
     from repro_torch.train.steps import init_train_state
@@ -3602,13 +3636,13 @@ def phase_train_checkpoint():
         a_log = _run_steps(a, batches[:2], cfg, opt, mb, dev)
         saved = _copy_state(a, dev)
         t0 = time.perf_counter()
-        mgr.save_async(2, a, mesh_shape=MESH_SHAPE)
+        mgr.save_async(2, reference_tree(a), mesh_shape=MESH_SHAPE)
         snapshot_s = time.perf_counter() - t0
         a_log += _run_steps(a, batches[2:], cfg, opt, mb, dev)
         mgr.wait()
         b = init_train_state(p["seed"] + 1, cfg, device=dev)
         t0 = time.perf_counter()
-        mgr.restore(mgr.latest_step(), b)
+        mgr.restore(mgr.latest_step(), reference_tree(b))
         restore_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3692,15 +3726,17 @@ def _rms1(gen, shape, dtype):
     return (x * torch.rsqrt((x * x).mean(-1, keepdim=True))).to(dtype)
 
 
-def _device_busy(fn):
-    """(ms, source, profile) of one call of ``fn`` after a warm one: its
+def _device_busy(fn, warm=True):
+    """(ms, source, profile) of one call of ``fn`` after a warm one (none
+    without ``warm``): its
     device busy ms from torch.profiler's kernel events
     (``device_split``), or, where the profiler records no device time,
     the CUDA-event ms of back-to-back calls (``cuda_ms``: the card's idle
     gaps counted too).  CUDA events around calls held behind a spin
     kernel (``device_ms``) do not serve here: a part of ~1,500 launches
     fills the stream's queue while it is held."""
-    fn()
+    if warm:
+        fn()
     rec = device_split(fn, trace=True)
     if "error" not in rec:
         return rec["device_busy_ms"], "torch.profiler", rec
@@ -3708,12 +3744,12 @@ def _device_busy(fn):
             f"CUDA events, idle gaps included ({rec['error']})", rec)
 
 
-def prefill_split(run, parts: dict) -> dict:
-    """The device busy time of one prefill (``run``) split into
-    ``parts`` ({name: (fn, count)}: each fn one layer's part at the
-    prefill's shapes, counted once per layer of its kind) and the rest,
-    each time from ``_device_busy``."""
-    busy, source, whole = _device_busy(run)
+def prefill_split(run, parts: dict, warm=True) -> dict:
+    """The device busy time of one prefill (``run``; after a warm call
+    with ``warm``) split into ``parts`` ({name: (fn, count)}: each fn one
+    layer's part at the prefill's shapes, counted once per layer of its
+    kind) and the rest, each time from ``_device_busy``."""
+    busy, source, whole = _device_busy(run, warm)
     info = {"busy_from": source}
     if "error" not in whole:
         info.update(prefill_wall_ms=whole["wall_ms"],
@@ -4052,6 +4088,425 @@ def phase_lm_parity():
           "cases": cases, "phase_s": time.perf_counter() - t_phase})
 
 
+# ------------------------------------------------------------ phases 25–28
+# training through the MoE, Mamba and RWKV kinds at full width: bf16,
+# remat "full", random weights from seed 0, SyntheticLM seed 0 and
+# OptConfig(total_steps=steps, warmup_steps=1) (launch.train's), 3 steps
+# through launch.train.train_model.  State at 16 B a parameter (bf16
+# weight and gradient, float32 m, v and gradient sum):
+#   train:rwkv   rwkv6-3b whole, 3.272 B parameters (~52.3 GB); batch
+#                cut 4 × 2048 in 2 microbatches → 2 × 1024 in 1 for the
+#                whole run's time limit: its step is host dispatch
+#                (~340k launches a microbatch at T 2048, in proportion
+#                to T, whatever the rows; on an NVIDIA H100 80GB HBM3
+#                at 700 W, 19.4 s a step at 4 × 2048 in 2, 11.65 s at
+#                2 × 2048 in 1);
+#   train:moe    mixtral-8x7b at its published width (d 4096, 8 experts
+#                of d_ff 14336, top-2, capacity factor 1.25, window
+#                4096), depth 32 → 2 (its period is 1): 3.165 B (~50.6 GB);
+#   train:hybrid jamba-v0.1-52b at its published width, one period (7
+#                Mamba + 1 attention, 4 MoE + 4 SwiGLU), experts 16 → 2:
+#                3.430 B (~54.9 GB).  One period with 16 experts is
+#                13.295 B parameters (~213 GB of state), with 4 it is
+#                4.839 B (~77 GB); with 2 experts and top-2 every token
+#                goes to both experts and nothing drops (train:moe and
+#                train:kinds-parity carry the routing and the drops).
+TRAIN_KINDS = {
+    "train:rwkv": {"arch": "rwkv6-3b", "over": {}, "batch": 2,
+                   "seq": 1024, "microbatches": 1,
+                   "cut": {"batch": "4 x 2048 in 2 microbatches -> "
+                                    "2 x 1024 in 1"}},
+    "train:moe": {"arch": "mixtral-8x7b", "over": {"n_layers": 2},
+                  "batch": 4, "seq": 4096, "microbatches": 4},
+    "train:hybrid": {"arch": "jamba-v0.1-52b",
+                     "over": {"n_layers": 8, "moe_experts": 2},
+                     "batch": 4, "seq": 1024, "microbatches": 4}}
+TRAIN_KINDS_STEPS = 3
+# train:kinds-parity — float32, the card against the CPU from one seeded
+# state: jamba's smoke width at 16 layers and capacity factor 1.25,
+# mixtral's smoke width, rwkv6-3b's published width at 2 layers (the
+# CPU side's time and ~15 GB); B 2 × T 128 (256 until the run's time
+# limit took it), 2 microbatches, 2 steps,
+# OptConfig().  On the MoE configs the last `run` tokens of each row
+# repeat its first (as LM_PARITY's prompts do), so that jamba's MoE
+# drops assignments.  The truth is the same steps in float64 on the CPU
+# (testing.float64_evaluation, held to the JAX package's float64 steps
+# within 1e-10 by tests/test_torch_train_kinds.py).  Per key (loss, grad
+# norm, and each parameter, m and v) the card's error against it within
+# tol (TRAIN_SMALL's) or, where larger, `spread` times the CPU's own
+# float32 spread on that key (the largest of its runs' errors at
+# microbatches 2 and 1 and their distance from each other; a tensor's
+# error differs up to 2.3× between those two runs): the factored WKV
+# chunk's gradients and AdamW's first steps on
+# zero-initialised tensors (Mamba conv_b, RWKV w0 and ln_b) are
+# ill-conditioned in float32, the JAX package's own steps included
+TRAIN_KINDS_PARITY = {
+    "cases": (("jamba-v0.1-52b", True,
+               {"n_layers": 16, "capacity_factor": 1.25}),
+              ("mixtral-8x7b", True, {}),
+              ("rwkv6-3b", False, {"n_layers": 2})),
+    "batch": 2, "t": 128, "run": 32, "steps": 2, "microbatches": 2,
+    "seed": 0, "tol": 1e-5, "spread": 2.5}
+
+
+def _fwd_bwd(fn, inputs):
+    """A part as a train step under remat "full" runs it: a forward
+    without grad (the forward pass), one with grad (the recomputation)
+    and its backward, with ones as the outputs' cotangents."""
+    import torch
+
+    def run():
+        with torch.no_grad():
+            fn()
+        outs = [o for o in fn() if o.requires_grad]
+        torch.autograd.grad(outs, inputs,
+                            [torch.ones_like(o) for o in outs],
+                            allow_unused=True)
+    return run
+
+
+def train_kinds_split(cfg, state, batch, opt, microbatches):
+    """One more train step's device time (``prefill_split`` of the step)
+    split into the parts of its layer kinds, each run alone on one layer
+    at a microbatch's shapes as the step runs it (``_fwd_bwd``: forward,
+    recomputation, backward; seeded inputs of RMS 1), counted once per
+    layer of its kind and microbatch: the Mamba scan (``_chunked_ssm``),
+    the MoE's route, dispatch, experts and combine, the WKV chunks
+    (``_wkv``), the channel mix, the blocked attention, and AdamW (once,
+    zero gradients); the rest is the step's busy time less the parts."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import mamba, moe, rwkv
+    from repro_torch.models.attention import blocked_flash_attention
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.steps import train_step
+    b = batch["tokens"].shape[0] // microbatches
+    t = batch["tokens"].shape[1]
+    layers = list(state["params"].layers)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    dt = cfg.torch_dtype
+
+    def first(pred):
+        return next((x for x in layers if pred(x.kind)), None)
+
+    def count(pred):
+        return sum(pred(x.kind) for x in layers) * microbatches
+
+    def leaf(shape, dtype=dt):
+        return _rms1(gen, shape, dtype).requires_grad_()
+
+    parts = {}
+    mam = first(lambda k: k[0] == "mamba")
+    if mam is not None:
+        xc = F.silu(leaf((b, t, cfg.d_inner))).detach().requires_grad_()
+        h0 = torch.zeros((b, cfg.d_inner, cfg.mamba_d_state),
+                         dtype=torch.float32, device=DEVICE)
+        used = [mam.mixer[n] for n in ("w_x", "w_dt", "b_dt", "a_log")]
+        parts["mamba_scan"] = (_fwd_bwd(
+            lambda: mamba._chunked_ssm(mam.mixer, xc, cfg, h0)[:1],
+            [xc] + used), count(lambda k: k[0] == "mamba"))
+    exp = first(lambda k: k[1] == "moe")
+    if exp is not None:
+        e, k = cfg.moe_experts, cfg.moe_top_k
+        ev = exp.ffn["w1"].shape[0]
+        cap = moe.capacity(cfg, t)
+        x = leaf((b, t, cfg.d_model))
+        router = exp.ffn["router"]
+        with torch.no_grad():
+            se, st, sw, pos, keep, order, _ = moe._route(x, router, e, k,
+                                                         cap, ev // e)
+            pos_c = torch.where(keep, pos, cap)
+            buf = moe._dispatch(x, se, st, pos_c, ev, cap)
+            y = moe._experts(exp.ffn, buf)
+        buf, y, sw = (a.detach().requires_grad_() for a in (buf, y, sw))
+        weights = [exp.ffn[n] for n in ("w1", "w2", "w3")]
+        n_moe = count(lambda k: k[1] == "moe")
+        parts.update({
+            "moe_route": (_fwd_bwd(
+                lambda: moe._route(x, router, e, k, cap, ev // e)[2::4],
+                [x, router]), n_moe),
+            "moe_dispatch": (_fwd_bwd(
+                lambda: [moe._dispatch(x, se, st, pos_c, ev, cap)], [x]),
+                n_moe),
+            "moe_experts": (_fwd_bwd(lambda: [moe._experts(exp.ffn, buf)],
+                                     [buf] + weights), n_moe),
+            "moe_combine": (_fwd_bwd(
+                lambda: [moe._combine(y, se, sw, pos_c, order, t,
+                                      k * (ev // e))], [y, sw]), n_moe)})
+    tm = first(lambda k: k[0] == "rwkv")
+    if tm is not None:
+        hd = cfg.rwkv_head_size
+        shape = (b, t, cfg.d_model // hd, hd)
+        r, kk, v = (leaf(shape, torch.float32) for _ in range(3))
+        with torch.no_grad():
+            lw = torch.clamp(-torch.exp(torch.randn(
+                shape, generator=gen, device=DEVICE)), rwkv.LOG_W_MIN,
+                rwkv.LOG_W_MAX)
+        lw.requires_grad_()
+        s0 = torch.zeros((b, cfg.d_model // hd, hd, hd), device=DEVICE)
+        c = min(cfg.time_chunk, t)
+        u = tm.mixer["u"]
+        parts["wkv_chunks"] = (_fwd_bwd(
+            lambda: rwkv._wkv(r, kk, v, lw, u, s0, c), [r, kk, v, lw, u]),
+            count(lambda k: k[0] == "rwkv"))
+    cm = first(lambda k: k[1] == "channelmix")
+    if cm is not None:
+        x_cm = leaf((b, t, cfg.d_model))
+        parts["channel_mix"] = (_fwd_bwd(
+            lambda: rwkv.rwkv_channel_mix(cm.ffn, x_cm)[:1],
+            [x_cm] + list(cm.ffn.values())),
+            count(lambda k: k[1] == "channelmix"))
+    if first(lambda k: k[0] == "attn") is not None:
+        q, kv1, kv2 = (leaf((b, t, n, cfg.head_dim_)) for n in (
+            cfg.n_heads_eff, cfg.n_kv_heads, cfg.n_kv_heads))
+        parts["blocked_attention"] = (_fwd_bwd(
+            lambda: [blocked_flash_attention(q, kv1, kv2, cfg)],
+            [q, kv1, kv2]), count(lambda k: k[0] == "attn"))
+    zeros = {n: torch.zeros_like(m) for n, m in state["m"].items()}
+    parts["adamw"] = (lambda: adamw_update(state["params"], zeros, state,
+                                           opt), 1)
+    # the step itself is warm: the phase has run it
+    split = prefill_split(lambda: train_step(state, batch, cfg, opt,
+                                             microbatches=microbatches),
+                          parts, warm=False)
+    del zeros
+    torch.cuda.empty_cache()
+    return {k.replace("prefill", "step"): v for k, v in split.items()}
+
+
+def phase_train_kind(label):
+    """One TRAIN_KINDS cell through ``launch.train.train_model`` (the
+    launch counts set to 0 just before and read just after, the MoE's
+    drops counted), its checks, and one more step's split."""
+    import dataclasses
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import train_model, upload
+    from repro_torch.models.transformer import init_params
+    from repro_torch.testing import moe_routes
+    from repro_torch.train import OptConfig
+    p = TRAIN_KINDS[label]
+    steps = TRAIN_KINDS_STEPS
+    t_phase = time.perf_counter()
+    full = get_config(p["arch"])
+    cfg = dataclasses.replace(full, **p["over"])
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with moe_routes() as routes:
+        out = train_model(cfg, steps, p["batch"], p["seq"],
+                          microbatches=p["microbatches"], device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log, state = out["log"], out["state"]
+    # every route of the run: the forward's and the recomputation's
+    dropped = sum(int((~r[4]).sum()) for r in routes)
+    assignments = sum(r[4].numel() for r in routes)
+    n_routes = len(routes)
+    del routes
+    check(all(n == 0 for n in launches.values()),
+          f"{label}: the training route launched a kernel: {launches}")
+    check(len(log) == steps and int(state["step"]) == steps,
+          f"{label}: {len(log)} steps logged, step {int(state['step'])}")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in log), f"{label}: a non-finite loss or grad norm: "
+                             f"{log}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(log[0]["loss"] - ln_v) <= 1.0,
+          f"{label}: first loss {log[0]['loss']} not within 1.0 of ln V "
+          f"= {ln_v}")
+    check_step_syncs(log, label)
+    start = init_params(0, cfg, device=DEVICE)
+    named = dict(state["params"].named_parameters())
+    mats = [n for n, p0 in start.named_parameters() if p0.dim() >= 2]
+    moved = torch.stack([torch.any(named[n].detach() != p0)
+                         for n, p0 in start.named_parameters()
+                         if p0.dim() >= 2]).cpu()
+    m_nonzero = torch.stack([torch.any(t != 0)
+                             for t in state["m"].values()]).cpu()
+    del start
+    check(bool(moved.all()), f"{label}: matrices that did not move: "
+          f"{[n for n, ok in zip(mats, moved.tolist()) if not ok]}")
+    check(bool(m_nonzero.all()), f"{label}: an all-zero m tensor")
+    times = [r["seconds"] for r in log]
+    step_s = statistics.median(times[1:])
+    tokens = p["batch"] * p["seq"]
+    flops = cfg.model_flops_per_token("train") * tokens
+    opt = OptConfig(total_steps=steps, warmup_steps=max(1, steps // 10))
+    batch = upload(SyntheticLM(cfg.vocab_size, p["seq"], p["batch"])
+                   .batch_at(steps), torch.device(DEVICE))
+    t_split = time.perf_counter()
+    split = train_kinds_split(cfg, state, batch, opt, p["microbatches"])
+    split_s = time.perf_counter() - t_split
+    emit({"phase": label, "arch": p["arch"], "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "moe_experts": cfg.moe_experts,
+          "dtype": cfg.dtype, "remat": cfg.remat,
+          "kinds": {f"{m}+{f}": kinds.count((m, f)) for m, f in
+                    sorted(set(kinds))},
+          "cut": dict({k: f"{getattr(full, k)} -> {v}"
+                       for k, v in p["over"].items()}, **p.get("cut", {})),
+          "params": cfg.param_count(),
+          "active_params": cfg.active_param_count(),
+          "batch": p["batch"], "seq": p["seq"],
+          "microbatches": p["microbatches"],
+          "losses": [r["loss"] for r in log],
+          "grad_norms": [r["grad_norm"] for r in log],
+          "lrs": [r["lr"] for r in log], "step_s": times,
+          "median_step_s_2_to_3": step_s, "tokens_per_s": tokens / step_s,
+          "mfu": flops / step_s / PEAK_BF16,
+          "model_flops_per_step": flops,
+          "max_memory_allocated": peak, "train_call_s": wall,
+          "step_syncs": [r["step_syncs"] for r in log],
+          "moe_dropped": dropped, "moe_assignments": assignments,
+          "moe_route_calls": n_routes, "launches": launches,
+          "device_split_one_step": split, "split_s": split_s,
+          "phase_s": time.perf_counter() - t_phase})
+    del out, state, batch
+    torch.cuda.empty_cache()
+
+
+def _kinds_batches(cfg, p, device):
+    """SyntheticLM batches (seed ``p["seed"]``), the last ``p["run"]``
+    tokens of each row its first token on a MoE config."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import upload
+    src = SyntheticLM(cfg.vocab_size, p["t"], p["batch"], seed=p["seed"])
+    out = []
+    for i in range(p["steps"]):
+        b = src.batch_at(i)
+        if cfg.moe_experts:
+            b["tokens"][:, -p["run"]:] = b["tokens"][:, :1]
+            b["labels"][:, -p["run"] - 1:-1] = b["tokens"][:, :1]
+        out.append(upload(b, device))
+    return out
+
+
+def phase_train_kinds_parity():
+    """Each TRAIN_KINDS_PARITY case at float32: two ``train_step`` calls
+    on the card and on the CPU from one seeded state; the truth is the
+    same steps in float64 on the CPU (``testing.float64_evaluation``,
+    which the CPU tests hold to the JAX package's float64 steps within
+    1e-10).  Per key (loss, grad norm, and each parameter, m and v by its
+    relative Frobenius error) the card's error against the truth within
+    tol or ``spread`` × the CPU's own float32 spread on that key: the
+    largest of its two runs' errors (at microbatches 2 and 1) and their
+    distance from each other.  Every MoE route equal.  The states are
+    compared on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.testing import (float64_evaluation, moe_routes,
+                                     widen_train_state)
+    from repro_torch.train import OptConfig
+    from repro_torch.train.steps import init_train_state
+    p = TRAIN_KINDS_PARITY
+    t_phase = time.perf_counter()
+    opt = OptConfig()
+    cpu_dev, dev = torch.device("cpu"), torch.device(DEVICE)
+    mb = p["microbatches"]
+    cases = []
+    for arch, smoke, over in p["cases"]:
+        base = get_smoke_config(arch) if smoke else get_config(arch)
+        cfg = dataclasses.replace(base, dtype="float32", **over)
+        label = f"train:kinds-parity {arch}"
+        cpu = init_train_state(p["seed"], cfg, device=cpu_dev)
+        cpu1, card = _copy_state(cpu, cpu_dev), _copy_state(cpu, dev)
+        truth = widen_train_state(cpu)
+        batches = _kinds_batches(cfg, p, cpu_dev)
+        on_card = [{k: x.to(dev) for k, x in b.items()} for b in batches]
+        t0 = time.perf_counter()
+        with moe_routes() as want_plans:
+            cpu_log = _run_steps(cpu, batches, cfg, opt, mb, cpu_dev)
+        cpu_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        with moe_routes() as got_plans:
+            card_log = _run_steps(card, on_card, cfg, opt, mb, dev)
+        card_s = time.perf_counter() - t0
+        launches = read_launches()
+        # the truth at one microbatch: the same loss, grad norm and state
+        # as at two, in float64, for less of the CPU's time
+        t0 = time.perf_counter()
+        with float64_evaluation():
+            truth_log = _run_steps(truth, batches, cfg, opt, 1, cpu_dev)
+        truth_s = time.perf_counter() - t0
+        cpu1_log = _run_steps(cpu1, batches, cfg, opt, 1, cpu_dev)
+        check(all(n == 0 for n in launches.values()),
+              f"{label}: the training route launched a kernel: {launches}")
+        check_step_syncs(card_log, label)
+        check(int(card["step"]) == int(cpu["step"]) == p["steps"],
+              f"{label}: step is not {p['steps']} on both")
+        truth, cpu, cpu1 = (_copy_state(x, dev) for x in (truth, cpu, cpu1))
+
+        def errors(state, log, want=truth, want_log=truth_log):
+            out = _rel_errors(state, want)
+            for key in ("loss", "grad_norm"):
+                out[key] = max(abs(r[key] / w[key] - 1)
+                               for r, w in zip(log, want_log))
+            return out
+
+        err = errors(card, card_log)
+        own = {}
+        for sample in (errors(cpu, cpu_log), errors(cpu1, cpu1_log),
+                       errors(cpu, cpu_log, cpu1, cpu1_log)):
+            own = {k: max(own.get(k, 0.0), e) for k, e in sample.items()}
+        limit = {k: max(p["tol"], p["spread"] * own[k]) for k in err}
+        beyond = {k: (err[k], limit[k]) for k in err if err[k] > limit[k]}
+        check(not beyond, f"{label}: card against the float64 truth "
+                          f"beyond the limit at {beyond}")
+        check(len(got_plans) == len(want_plans),
+              f"{label}: {len(got_plans)} MoE routes on the card, "
+              f"{len(want_plans)} on the CPU")
+        routes_equal = all(torch.equal(g[i].cpu(), w[i])
+                           for g, w in zip(got_plans, want_plans)
+                           for i in (0, 1, 3, 4))
+        check(routes_equal, f"{label}: an MoE route differs between the "
+                            f"card and the CPU")
+        dropped = sum(int((~w[4]).sum()) for w in want_plans)
+        n_plans = len(want_plans)
+        if cfg.moe_experts and cfg.capacity_factor < cfg.moe_experts:
+            check(dropped > 0, f"{label}: no assignment dropped at "
+                               f"capacity factor {cfg.capacity_factor}")
+        del want_plans, got_plans
+
+        def worst(errors_):
+            return {part: max(((k, e) for k, e in errors_.items()
+                               if k.startswith(part + ":")),
+                              key=lambda x: x[1])
+                    for part in ("params", "m", "v")}
+
+        ratio = max(err, key=lambda k: err[k] / limit[k])
+        cases.append({
+            "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "capacity_factor": cfg.capacity_factor,
+            "losses_card": [r["loss"] for r in card_log],
+            "losses_cpu": [r["loss"] for r in cpu_log],
+            "card_vs_truth": dict(worst(err), loss=err["loss"],
+                                  grad_norm=err["grad_norm"]),
+            "cpu_spread": dict(worst(own), loss=own["loss"],
+                               grad_norm=own["grad_norm"]),
+            "closest_to_limit": (ratio, err[ratio], limit[ratio]),
+            "moe_routes": n_plans, "moe_dropped": dropped,
+            "launches": launches, "card_s": card_s, "cpu_s": cpu_s,
+            "truth_s": truth_s})
+        del cpu, cpu1, card, truth, batches, on_card
+        torch.cuda.empty_cache()
+    emit({"phase": "train:kinds-parity", "dtype": "float32",
+          "tol": p["tol"], "spread": p["spread"], "cases": cases,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
@@ -4124,6 +4579,9 @@ def main(argv) -> int:
     phase_serve_hybrid()
     phase_serve_rwkv()
     phase_lm_parity()
+    for label in TRAIN_KINDS:
+        phase_train_kind(label)
+    phase_train_kinds_parity()
     kernels = []
     for rec, launches, name, source, replaces in (
             (k1, main_run["launches"], "qap_objective",

@@ -23,7 +23,13 @@ package reads the other's bfloat16 leaves bit for bit.
 A state is a tree of dicts (keys in sorted order, as JAX flattens them),
 lists and tuples, whose leaves are tensors (or numpy arrays, for a
 snapshot); a module stands for its ``named_parameters()``.  Paths are
-written as JAX's ``keystr`` writes them (``['params']['layers.0.norm1']``).
+written as JAX's ``keystr`` writes them.
+
+A leaf may be a :class:`Stacked`: a list of tensors saved as one array,
+stacked on the host along a new first axis, and restored by copying each
+slice back into its tensor.  ``convert.reference_tree`` uses it to write
+a model's train state in the JAX package's tree (each layer leaf stacked
+over the periods), so that either package restores the other's file.
 Restoring into another mesh (the JAX package's elastic path) is not
 ported: one card has none.
 """
@@ -40,7 +46,24 @@ import torch
 
 from ..runtime.boundary import host_boundary
 
-__all__ = ["CheckpointManager", "tree_leaves", "tree_paths"]
+__all__ = ["CheckpointManager", "Stacked", "tree_leaves", "tree_paths"]
+
+
+class Stacked:
+    """One leaf made of tensors of one shape and type, saved as their
+    stack along a new first axis (on the host, in the snapshot); a
+    restore copies each slice back into its tensor."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @property
+    def shape(self):
+        return (len(self.parts),) + tuple(self.parts[0].shape)
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
 
 
 def _items(tree, prefix=""):
@@ -71,6 +94,8 @@ def _host(t, hb) -> np.ndarray:
     in-place updates."""
     if isinstance(t, np.ndarray):
         return t
+    if isinstance(t, Stacked):
+        return np.stack([_host(x, hb) for x in t.parts])
     t = t.detach()
     bf16 = t.dtype == torch.bfloat16
     bits = t.view(torch.int16) if bf16 else t
@@ -86,6 +111,16 @@ def _dtype_name(t) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
+def _copy_into(tgt, saved) -> None:
+    """Copy a stored leaf (a CPU tensor) into the target's tensor, or
+    each period's slice into its layer's tensor."""
+    if isinstance(tgt, Stacked):
+        for x, s in zip(tgt.parts, saved):
+            x.copy_(s)
+    else:
+        tgt.copy_(saved)
+
+
 def _tensor(arr: np.ndarray, dtype_str: str):
     """A stored leaf as a CPU tensor of the manifest's type."""
     if dtype_str == "bfloat16":
@@ -97,8 +132,9 @@ def _snapshot(state) -> list:
     """[(path, host array, type name)] of the state's leaves, copied
     device → host at the boundary ``checkpoint.snapshot``."""
     items = list(_items(state))
-    device = next((x.device for _, x in items
-                   if isinstance(x, torch.Tensor)), None)
+    device = next((t.device for _, x in items
+                   for t in (x.parts if isinstance(x, Stacked) else [x])
+                   if isinstance(t, torch.Tensor)), None)
     with host_boundary("checkpoint.snapshot", device) as hb:
         return [(p, _host(x, hb), _dtype_name(x)) for p, x in items]
 
@@ -196,6 +232,6 @@ class CheckpointManager:
                                  f"{saved.dtype} vs {tgt.dtype}")
         with torch.no_grad():
             for saved, tgt in zip(leaves, t_leaves):
-                tgt.copy_(saved)
+                _copy_into(tgt, saved)
         return target_tree
 

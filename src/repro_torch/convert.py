@@ -22,6 +22,10 @@ device.  The port never imports ``repro``: the caller does the
                                "cuda")
     state = convert.train_state(jax.tree.map(np.asarray, state_ref), cfg,
                                 "cuda")
+
+and back: ``reference_tree(state)`` is a port train state (or model) in
+the JAX package's tree, which ``CheckpointManager`` saves as the JAX
+package saves its own.
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ from .runtime.device import resolve_device
 
 __all__ = ["device_graph", "graph", "lm_caches", "lm_params", "pairs",
            "perm",
-           "plan_spec", "spec", "topology", "topology_from_matrix",
-           "train_state"]
+           "plan_spec", "reference_tree", "spec", "topology",
+           "topology_from_matrix", "train_state"]
 
 
 def spec(d: dict) -> MappingSpec:
@@ -178,3 +182,41 @@ def train_state(tree: dict, cfg, device=None) -> dict:
             "v": moments(tree["v"]),
             "step": torch.tensor(int(np.asarray(tree["step"])),
                                  dtype=torch.int32).to(dev)}
+
+
+def _stacked(named: dict, cfg) -> dict:
+    """{name: tensor} keyed as a ``Transformer``'s ``named_parameters()``
+    → the JAX package's tree, the inverse of :func:`lm_params`'s layer
+    mapping: ``embeddings`` and ``periods[pos]``, layer i = period·p +
+    pos at index ``period`` of each leaf (a ``checkpoint.Stacked``)."""
+    from .checkpoint.checkpoint import Stacked
+    p = cfg.period
+    emb = {k.split(".", 1)[1]: t for k, t in named.items()
+           if k.startswith("embeddings.")}
+    periods = []
+    for pos in range(p):
+        first = f"layers.{pos}."
+        tree = {}
+        for name in (k[len(first):] for k in named if k.startswith(first)):
+            *path, leaf = name.split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = Stacked(named[f"layers.{i}.{name}"]
+                                 for i in range(pos, cfg.n_layers, p))
+        periods.append(tree)
+    return {"embeddings": emb, "periods": periods}
+
+
+def reference_tree(tree):
+    """A port model (``Transformer``) or train state (``{"params":
+    Transformer, "m": {name: t}, "v": {name: t}, "step": t}``) in the JAX
+    package's tree: the same paths (``['params']['periods'][0]['mixer']
+    ['w_in']``), shapes and types, each layer leaf a ``Stacked`` of the
+    port's tensors (no copy until a checkpoint snapshots it)."""
+    from .models.transformer import Transformer
+    if isinstance(tree, Transformer):
+        return _stacked(dict(tree.named_parameters()), tree.cfg)
+    cfg = tree["params"].cfg
+    return dict(tree, params=reference_tree(tree["params"]),
+                **{k: _stacked(tree[k], cfg) for k in ("m", "v")})

@@ -1,8 +1,9 @@
 """Training entry point: data pipeline → train loop → checkpoints → fault
 tolerance — the JAX package's ``launch/train.py`` on one card.
 
-Usage (local smoke):
-    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+Usage (local smoke; any shipped ``--arch``, every layer kind and
+modality frontend):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
         --smoke --steps 20 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \\
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
@@ -10,8 +11,10 @@ Usage (local smoke):
 
 Runs on ``cuda`` unless ``--device cpu`` (no fallback: without a card
 the default raises).  One card has no mesh: checkpoints record
-``mesh_shape`` (1, 1).  Each step's batch is uploaded through page-locked
-memory without blocking (boundary ``train.batch``); the step itself
+``mesh_shape`` (1, 1), and hold the train state in the JAX package's
+layout (leaves stacked over periods, the same paths).  Each step's
+batch is uploaded through page-locked memory without blocking (boundary
+``train.batch``); the step itself
 (forward, backward, AdamW) runs inside the boundary ``train.step``,
 whose syncs — on this thread and on the autograd engine's — are counted
 on CUDA and reported per step; the log values
@@ -31,6 +34,7 @@ import torch
 
 from ..checkpoint.checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke_config
+from ..convert import reference_tree
 from ..data.pipeline import Prefetcher, SyntheticLM
 from ..runtime.boundary import host_boundary
 from ..runtime.device import resolve_device
@@ -38,7 +42,7 @@ from ..runtime.fault_tolerance import Action, StragglerMonitor
 from ..train import OptConfig
 from ..train.steps import build_train_step, init_train_state
 
-__all__ = ["MESH_SHAPE", "main", "train", "upload"]
+__all__ = ["MESH_SHAPE", "main", "train", "train_model", "upload"]
 
 MESH_SHAPE = (1, 1)             # (data, model) of one card
 
@@ -61,7 +65,21 @@ def train(arch: str, steps: int, global_batch: int, seq_len: int,
           smoke: bool = False, ckpt_dir: str | None = None,
           ckpt_every: int = 10, microbatches: int = 1,
           log_every: int = 1, device=None) -> dict:
-    """Train ``arch`` for ``steps`` steps (resuming from the latest
+    """:func:`train_model` of ``arch``'s config (its smoke config with
+    ``smoke``): every shipped config, of any layer kind, trains through
+    the same code."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    return train_model(cfg, steps, global_batch, seq_len,
+                       ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                       microbatches=microbatches, log_every=log_every,
+                       device=device)
+
+
+def train_model(cfg, steps: int, global_batch: int, seq_len: int,
+                ckpt_dir: str | None = None, ckpt_every: int = 10,
+                microbatches: int = 1, log_every: int = 1,
+                device=None) -> dict:
+    """Train ``cfg`` for ``steps`` steps (resuming from the latest
     checkpoint in ``ckpt_dir``, if any).  Returns ``final_loss`` and
     ``state``, as the JAX package does, and ``log``: per step run, its
     ``step``, ``loss``, ``grad_norm``, ``lr``, ``seconds`` (upload, step
@@ -69,7 +87,6 @@ def train(arch: str, steps: int, global_batch: int, seq_len: int,
     each boundary saw (``step_syncs``, ``batch_syncs``, ``log_syncs``
     beside ``log_reads``; None on the CPU)."""
     dev = resolve_device(device)
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
     opt = OptConfig(total_steps=steps, warmup_steps=max(1, steps // 10))
     step_fn = build_train_step(cfg, opt=opt, global_batch=global_batch,
                                microbatches=microbatches)
@@ -84,7 +101,7 @@ def train(arch: str, steps: int, global_batch: int, seq_len: int,
     state = init_train_state(0, cfg, device=dev)
     if mgr is not None and mgr.latest_step() is not None:
         start_step = mgr.latest_step()
-        state = mgr.restore(start_step, state)
+        mgr.restore(start_step, reference_tree(state))
         print(f"restored checkpoint at step {start_step}")
 
     pre = Prefetcher(data, start_step=start_step)
@@ -120,7 +137,8 @@ def train(arch: str, steps: int, global_batch: int, seq_len: int,
                       f"lr={lr:.2e} {dt*1e3:.0f}ms",
                       flush=True)
             if mgr is not None and (step + 1) % ckpt_every == 0:
-                mgr.save_async(step + 1, state, mesh_shape=MESH_SHAPE)
+                mgr.save_async(step + 1, reference_tree(state),
+                               mesh_shape=MESH_SHAPE)
     finally:
         pre.close()
         if mgr is not None:

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import normal
+from .layers import normal, silu
 
 __all__ = ["decode_mamba_block", "init_mamba", "init_mamba_cache",
            "mamba_block"]
@@ -109,7 +109,11 @@ def _chunked_ssm(params, xc, cfg, h0):
     h = h0
     ys = []
     for start in range(0, t, c):
-        abar, bx, cm = _ssm_params(params, xc[:, start:start + c], cfg)
+        # a contiguous chunk: its projection reaches the dispatcher as one
+        # ``mm`` (a strided slice would make it a ``bmm`` over B, which
+        # the "dots" remat policy recomputes; the reference's keeps it)
+        abar, bx, cm = _ssm_params(
+            params, xc[:, start:start + c].contiguous(), cfg)
         aa, bb = _prefix_scan(abar, bx)
         h_all = aa * h[:, None] + bb                 # states at each step
         ys.append(torch.einsum("btds,bts->btd", h_all, cm))
@@ -133,12 +137,12 @@ def _mamba_prefill(params, x, cfg):
     x_p, z = torch.chunk(xz, 2, dim=-1)
     xc, _ = _causal_conv(x_p, params["conv_w"], params["conv_b"])
     conv_state = F.pad(x_p, (0, 0, max(dc - 1 - t, 0), 0))[:, -(dc - 1):]
-    xc = F.silu(xc)
+    xc = silu(xc)
     h0 = torch.zeros((b, cfg.d_inner, cfg.mamba_d_state),
                      dtype=torch.float32, device=x.device)
     y, h_f = _chunked_ssm(params, xc, cfg, h0)
     y = y + params["d_skip"] * xc.to(torch.float32)
-    y = y.to(x.dtype) * F.silu(z)
+    y = y.to(x.dtype) * silu(z)
     return y @ params["w_out"], {"conv": conv_state, "ssm": h_f}
 
 
@@ -158,12 +162,12 @@ def decode_mamba_block(params, x, cache, cfg):
     x_p, z = torch.chunk(xz, 2, dim=-1)
     xc, conv_state = _causal_conv(x_p, params["conv_w"], params["conv_b"],
                                   state=cache["conv"])
-    xc = F.silu(xc)
+    xc = silu(xc)
     abar, bx, c_mat = _ssm_params(params, xc, cfg)     # T = 1
     h = abar[:, 0] * cache["ssm"] + bx[:, 0]           # (B, di, ds)
     y = torch.einsum("bds,bs->bd", h, c_mat[:, 0])[:, None]
     y = y + params["d_skip"] * xc.to(torch.float32)
-    y = y.to(x.dtype) * F.silu(z)
+    y = y.to(x.dtype) * silu(z)
     out = y @ params["w_out"]
     cache["conv"].copy_(conv_state)
     cache["ssm"].copy_(h)

@@ -29,9 +29,8 @@ and every index are computed on the device.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from .layers import normal
+from .layers import normal, silu
 
 __all__ = ["capacity", "ep_split", "init_moe", "moe_ffn"]
 
@@ -161,7 +160,7 @@ def _dispatch(x, se, st, pos_c, ev: int, cap: int):
 def _experts(params, buf):
     """The SwiGLU expert FFNs on every slot: (B, E_v, cap, D) → same."""
     h = torch.einsum("becd,edf->becf", buf, params["w1"])
-    h = F.silu(h) * torch.einsum("becd,edf->becf", buf, params["w3"])
+    h = silu(h) * torch.einsum("becd,edf->becf", buf, params["w3"])
     return torch.einsum("becf,efd->becd", h, params["w2"])
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import normal
+from .layers import normal, silu
 
 __all__ = ["LOG_W_MAX", "LOG_W_MIN", "decode_rwkv_channel_mix",
            "decode_rwkv_time_mix", "init_rwkv_channel_mix",
@@ -79,6 +79,17 @@ def _group_norm(y, gamma, beta, eps=1e-5):
     return yn * gamma.to(torch.float32) + beta.to(torch.float32)
 
 
+def _clip_log_w(x):
+    """``jnp.clip(x, LOG_W_MIN, LOG_W_MAX)``: min(max(x, lo), hi), whose
+    gradient at a bound is 0.5 (``lax.max`` and ``lax.min`` split a tie,
+    as ``torch.maximum`` and ``torch.minimum`` do; ``torch.clamp``'s
+    would be 1).  The bounds are filled on the device: a copy from the
+    host would sync."""
+    lo, hi = (torch.full((), b, dtype=x.dtype, device=x.device)
+              for b in (LOG_W_MIN, LOG_W_MAX))
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def _rkvgw(params, x, xx, cfg):
     def mix(mu):
         return x + (xx - x) * mu
@@ -86,13 +97,30 @@ def _rkvgw(params, x, xx, cfg):
     r = _heads(mix(params["mu_r"]) @ params["wr"], hd)
     k = _heads(mix(params["mu_k"]) @ params["wk"], hd)
     v = _heads(mix(params["mu_v"]) @ params["wv"], hd)
-    g = F.silu(mix(params["mu_g"]) @ params["wg"])
+    g = silu(mix(params["mu_g"]) @ params["wg"])
     w_pre = params["w0"] + (torch.tanh(mix(params["mu_w"])
                                        @ params["w_lora_a"])
                             @ params["w_lora_b"]).to(torch.float32)
-    log_w = torch.clamp(-torch.exp(w_pre), LOG_W_MIN, LOG_W_MAX)
+    log_w = _clip_log_w(-torch.exp(w_pre))
     return (r.to(torch.float32), k.to(torch.float32), v.to(torch.float32),
             g, _heads(log_w, hd))
+
+
+def _cumulative(lw):
+    """Λ, the cumulative log-decays along a chunk (dim 1), each prefix
+    the sum of the one before and the next term in lw's type, as
+    ``jnp.cumsum`` (a reduce_window) and CUDA's ``torch.cumsum`` add
+    them.  The CPU's ``torch.cumsum`` adds in float64 and rounds each
+    prefix on its own, so that a difference Λ_i − Λ_j, an exponent of
+    the factored scores, carries two roundings of |Λ| instead of those
+    of the terms between j and i: it put rwkv6-3b's float32 gradient
+    2.4× as far from the float64 one as the reference's."""
+    if lw.device.type != "cpu":
+        return torch.cumsum(lw, dim=1)
+    out = [lw[:, 0]]
+    for i in range(1, lw.shape[1]):
+        out.append(out[-1] + lw[:, i])
+    return torch.stack(out, dim=1)
 
 
 def _wkv_chunk(r, k, v, lw, u, s0):
@@ -105,7 +133,7 @@ def _wkv_chunk(r, k, v, lw, u, s0):
     |LOG_W_MIN|·c/2 ≤ 80, safe in float32.  Returns (y (B, c, H, V),
     s_end)."""
     c = r.shape[1]
-    lam = torch.cumsum(lw, dim=1)            # Λ_i inclusive
+    lam = _cumulative(lw)                    # Λ_i inclusive
     lam_m1 = lam - lw                        # Λ_{i-1} (Λ_0 = 0)
     base = lam[:, c // 2][:, None]           # Λ̄ per (B, 1, H, K)
     # state passthrough: exp(Λ_{i-1}) ≤ 1, always safe

@@ -13,12 +13,11 @@ tokens'; its aux loss is the MoE layers' load-balance losses summed.
 
 Parameters are frozen (``requires_grad=False``) as built; serving runs
 them under ``inference_mode``.  ``train.steps.init_train_state`` makes a
-training copy's parameters trainable (attention and MLP layers only:
-training through the MoE, Mamba and RWKV kinds waits for ROADMAP queue 1
-item 7), and ``forward(..., train=True)`` is the training forward:
-attention through the blocked twin (``attention.blocked_flash_attention``,
-which autograd follows) and each layer rematerialised as ``cfg.remat``
-says (a period is one layer in a dense decoder):
+training copy's parameters trainable (every layer kind), and
+``forward(..., train=True)`` is the training forward: attention through
+the blocked twin (``attention.blocked_flash_attention``, which autograd
+follows), the Mamba, RWKV and MoE layers through the same torch ops as
+serving, and each layer rematerialised as ``cfg.remat`` says:
 
   "full" — ``torch.utils.checkpoint.checkpoint`` around each layer
            (non-reentrant): only the layer's input is kept, the layer
@@ -27,6 +26,13 @@ says (a period is one layer in a dense decoder):
            outputs of the projection matmuls and recomputes the rest,
            the counterpart of ``dots_with_no_batch_dims_saveable``;
   "none" — autograd keeps every activation.
+
+The reference checkpoints a whole period (jamba's is 8 layers); the port
+checkpoints each layer.  Both recompute the same ops on the same inputs,
+so the values and gradients are the same, and the port's peak is lower:
+one layer's activations are live in the backward, not a period's.  A
+recomputed MoE layer routes its tokens again from the same saved input
+through the same ops, so it routes them as the forward did.
 
 Decode caches are a list with one dict per layer, keyed by what the
 layer carries: ``attn`` {k, v}, ``mamba`` {conv, ssm}, ``rwkv`` {x, s}
@@ -174,11 +180,14 @@ def _layer_apply(p, h, positions, cfg, train: bool = False):
 
 def _dots_policy(ctx, op, *args, **kwargs):
     """Keep the projection matmuls' outputs, recompute the rest.  The
-    projections reach the dispatcher as ``mm`` (``x @ w``) or as a
-    ``bmm`` of one batch (an einsum without batch axes); the attention's
-    einsums are ``bmm`` over B·KV·q blocks, recomputed like the JAX
-    policy's batched dots (a call with B·KV·blocks = 1 would keep them
-    too: more memory, the same values)."""
+    projections reach the dispatcher as ``mm`` (``x @ w``: the attention,
+    MLP, Mamba ``w_in``/``w_x``/``w_dt``/``w_out``, RWKV and router
+    projections) or as a ``bmm`` of one batch (an einsum without batch
+    axes); the batched einsums are ``bmm`` over their batch axes and are
+    recomputed like the JAX policy's batched dots: the attention's over
+    B·KV·q blocks, the MoE experts' over E_v, the Mamba readout's over
+    B·T and the RWKV chunk's over B·H (a call whose batch is 1 would
+    keep them too: more memory, the same values)."""
     if op is torch.ops.aten.mm.default or (
             op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
         return CheckpointPolicy.MUST_SAVE

@@ -6,7 +6,10 @@ records the lane count of every K2 launch while it is entered;
 :func:`moe_routes` records every MoE dispatch plan while it is entered,
 and :func:`moe_replay` hands recorded plans back to the MoE layers;
 :func:`warm_cpu_math` runs the CPU's vector math once before a CPU
-reference is computed.
+reference is computed; :func:`float64_evaluation` runs the model and
+training code in float64 (the truth a float32 train step's own error is
+measured against) and :func:`widen_train_state` copies a train state to
+float64 for it.
 
 Nothing here runs at import: this module is imported on machines with
 no CUDA toolkit.
@@ -17,8 +20,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
-__all__ = ["moe_replay", "moe_routes", "pair_gain_lanes", "tensors_in",
-           "warm_cpu_math"]
+__all__ = ["float64_evaluation", "moe_replay", "moe_routes",
+           "pair_gain_lanes", "tensors_in", "warm_cpu_math",
+           "widen_train_state"]
 
 
 def tensors_in(obj) -> int:
@@ -62,14 +66,16 @@ def pair_gain_lanes():
 def moe_routes():
     """Yield a list that receives every MoE dispatch plan made inside the
     block: ``models.moe._route``'s outputs (se, st, sw, pos, keep, order,
-    aux), device tensors, nothing read back."""
+    aux), device tensors, nothing read back; detached, so that a plan
+    recorded in a training forward keeps no autograd graph alive (under
+    remat, a checkpointed layer's recomputed activations with it)."""
     from .models import moe
     orig = moe._route
     log = []
 
     def recording(*a, **kw):
         out = orig(*a, **kw)
-        log.append(out)
+        log.append(tuple(t.detach() for t in out))
         return out
 
     moe._route = recording
@@ -122,3 +128,69 @@ def warm_cpu_math() -> None:
     for fn in (torch.cos, torch.sin, torch.exp, torch.log1p, torch.tanh,
                torch.sigmoid, torch.rsqrt, torch.erf):
         fn(x)
+
+
+@contextlib.contextmanager
+def float64_evaluation():
+    """Inside the block the model and training modules compute in float64
+    wherever they would cast to, or allocate, float32: their module
+    global ``torch`` is a stand-in whose ``float32`` is ``float64``.  On
+    float64 parameters (:func:`widen_train_state`) a train step is then
+    the same code in float64 throughout, the truth against which a
+    float32 step's rounding is measured; an op on floating tensors that
+    makes a floating tensor of another type inside the block (a float32
+    reached some other way) raises.  Process-wide while entered."""
+    import types
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from .models import attention, layers, mamba, moe, rwkv, transformer
+    from .train import loss, optimizer, steps
+
+    class Widened(types.ModuleType):
+        float32 = torch.float64
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+    def floats(tree):
+        return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)
+                and t.is_floating_point()]
+
+    class OnlyFloat64(TorchDispatchMode):
+        # an op on floating tensors must give float64; a factory (no
+        # floating input: autograd's checkpoint makes float32 sentinels)
+        # is let through
+        def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if floats((args, kwargs)):
+                for t in floats(out):
+                    if t.dtype != torch.float64:
+                        raise TypeError(f"float64_evaluation: {func} made "
+                                        f"a {t.dtype} tensor")
+            return out
+
+    mods = (attention, layers, mamba, moe, rwkv, transformer, loss,
+            optimizer, steps)
+    wide = Widened("torch")
+    for mod in mods:
+        mod.torch = wide
+    try:
+        with OnlyFloat64():
+            yield
+    finally:
+        for mod in mods:
+            mod.torch = torch
+
+
+def widen_train_state(state) -> dict:
+    """A float64 copy of a float32 train state, on the same device."""
+    import copy
+
+    import torch
+    return {"params": copy.deepcopy(state["params"]).double(),
+            "m": {k: t.double() for k, t in state["m"].items()},
+            "v": {k: t.double() for k, t in state["v"].items()},
+            "step": state["step"].clone()}

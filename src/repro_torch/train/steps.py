@@ -6,7 +6,9 @@ shardings; here they return the step with ``cfg`` and the optimizer
 bound, since one card has no mesh (``train_state_specs`` and the
 ``build_*`` sharding outputs wait with the XLA-bound part of ROADMAP queue
 1 item 7).  The JAX jit donates the train state; :func:`train_step`
-updates it in place instead and returns the same objects.
+updates it in place instead and returns the same objects.  Every shipped
+config trains: attention, Mamba and RWKV mixers, MLP, MoE and
+channel-mix FFNs, with a modality frontend's embeddings in the batch.
 
 A train state is ``{"params": Transformer, "m": {name: f32}, "v":
 {name: f32}, "step": int32 0-d}``, the moments named as the module's
@@ -25,29 +27,14 @@ from .optimizer import (OptConfig, adamw_update, init_opt_state,
                         named_params)
 
 __all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
-           "check_trainable", "default_microbatches", "init_train_state",
-           "prefill_step", "serve_step", "train_step"]
-
-
-def check_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` if ``cfg`` has a MoE, Mamba or RWKV
-    layer: the port trains attention + MLP layers (with or without a
-    modality frontend) only."""
-    kinds = sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)}
-                   - {("attn", "mlp")})
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {kinds}; training through the MoE, "
-            f"Mamba and RWKV kinds waits for ROADMAP queue 1 item 7 (its "
-            f"training part, gated on jax.grad of the reference); the port "
-            f"serves them")
+           "default_microbatches", "init_train_state", "prefill_step",
+           "serve_step", "train_step"]
 
 
 def init_train_state(seed: int, cfg, device=None):
     """Random parameters from ``seed`` (``init_params``), made trainable,
-    zero moments and step 0.  Attention + MLP configs only
-    (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    zero moments and step 0.  Every layer kind the port runs
+    (``models.transformer.check_supported``) trains."""
     params = init_params(seed, cfg, device=device)
     params.requires_grad_(True)
     opt = init_opt_state(params)
@@ -79,9 +66,9 @@ def train_step(state, batch, cfg, opt: OptConfig, microbatches: int = 1,
 
     Updates ``state`` in place and returns (state, metrics); every
     metric (``ce``, ``aux``, ``tokens``, ``loss``, ``grad_norm``,
-    ``lr``) is a device tensor.  Attention + MLP configs only
-    (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    ``lr``) is a device tensor.  The MoE layers' aux loss enters the
+    loss (``lm_loss``'s weight 0.01), so the router's gradient carries
+    it; a dropped MoE assignment gets no gradient."""
     params = state["params"]
     named = named_params(params)
     names, leaves = list(named), list(named.values())

@@ -26,6 +26,8 @@ the mean |difference| from ``kernels.ref.flash_bf16_limits``
 (``_assert_flash_close``).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1142,9 +1144,9 @@ TRAIN_ATTN_TOL = 2e-5
 def _train_state_on(state, device):
     import copy
     return {"params": copy.deepcopy(state["params"]).to(device),
-            "m": {k: t.to(device) for k, t in state["m"].items()},
-            "v": {k: t.to(device) for k, t in state["v"].items()},
-            "step": state["step"].to(device)}
+            "m": {k: t.to(device, copy=True) for k, t in state["m"].items()},
+            "v": {k: t.to(device, copy=True) for k, t in state["v"].items()},
+            "step": state["step"].to(device, copy=True)}
 
 
 def _rel_fro(got, want):
@@ -1285,3 +1287,168 @@ def test_runtime_audit_on_card(cuda):
     assert report["ok"], [e for e in report["entries"]
                           if e["status"] != "ok"]
     assert all(e["status"] == "ok" for e in report["entries"])
+
+
+# ------------------------------------ training through the new layer kinds
+def _kind_cfg(arch, dtype, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(arch), dtype=dtype, **over)
+
+
+def _kind_batch(cfg, b, t, seed, run=0):
+    """SyntheticLM tokens, the last ``run`` of each row its first token
+    (a padding run: it skews jamba's routers so that its MoE drops)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    batch = SyntheticLM(cfg.vocab_size, t, b, seed=seed).batch_at(0)
+    if run:
+        batch["tokens"][:, -run:] = batch["tokens"][:, :1]
+        batch["labels"][:, -run - 1:-1] = batch["tokens"][:, :1]
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 40, 64), (4, 16, 4, 32)])
+def test_wkv_cumulative_on_card_equals_cpu(cuda, shape):
+    """The WKV chunk's Λ (``models/rwkv.py:_cumulative``) on a chunk's
+    slice of log-decays: CUDA's ``torch.cumsum`` adds in float32, one
+    term after another, so the card and the CPU's running sum agree bit
+    for bit (rwkv6-3b's chunk and head size, and the smoke config's)."""
+    from repro_torch.models.rwkv import _cumulative
+    b, c, h, k = shape
+    gen = torch.Generator().manual_seed(0)
+    full = -torch.exp(torch.randn((b, 4 * c, h, k), generator=gen) * 0.7)
+    lw = full.clamp(-5.0, -1e-4)[:, c:2 * c]
+    assert torch.equal(_cumulative(lw.to(cuda)).cpu(), _cumulative(lw))
+
+
+def test_train_remat_keeps_the_routes_on_card(cuda):
+    """jamba's smoke config in bf16 at capacity factor 1.25, on the
+    card: under remat "full" the backward's recomputation routes every
+    token as the forward did (a near tie resolved otherwise the second
+    time would give a gradient of another function), the MoE drops
+    assignments, and the gradients equal remat "none"'s — bit for bit
+    where two remat "none" runs agree bit for bit, else, over every
+    tensor, within 2.5× the largest difference between those two runs
+    (the dispatch's gather backward adds on the card with atomics)."""
+    import dataclasses
+    import functools
+
+    from repro_torch.models.transformer import forward
+    from repro_torch.testing import moe_routes
+    from repro_torch.train import lm_loss
+    from repro_torch.train.steps import init_train_state
+    cfg = _kind_cfg("jamba-v0.1-52b", "bfloat16", capacity_factor=1.25)
+    params = init_train_state(0, cfg, device=cuda)["params"]
+    batch = {k: v.to(cuda) for k, v in
+             _kind_batch(cfg, 4, 256, 0, run=64).items()}
+    fwd = functools.partial(forward, train=True)
+    n_moe = sum(cfg.layer_kind(i)[1] == "moe" for i in range(cfg.n_layers))
+
+    def grads(remat):
+        with moe_routes() as plans:
+            loss, _ = lm_loss(params, batch,
+                              dataclasses.replace(cfg, remat=remat), fwd)
+            g = torch.autograd.grad(loss, list(params.parameters()))
+        return g, [tuple(a.detach() for a in p[:5]) for p in plans]
+
+    full, plans = grads("full")
+    none, none_plans = grads("none")
+    again, _ = grads("none")
+    assert len(plans) == 2 * n_moe and len(none_plans) == n_moe
+    forward_plans, recomputed = plans[:n_moe], plans[n_moe:][::-1]
+    dropped = 0
+    for a, b, c in zip(forward_plans, recomputed, none_plans):
+        for i in (0, 1, 3, 4):                  # expert, token, slot, kept
+            assert torch.equal(a[i], b[i]) and torch.equal(a[i], c[i])
+        assert torch.equal(a[2], b[2])
+        dropped += int((~a[4]).sum())
+    assert dropped > 0
+    spread = max(_rel_fro(n2, n) for n, n2 in zip(none, again))
+    if spread == 0.0:
+        assert all(torch.equal(f, n) for f, n in zip(full, none))
+    else:
+        assert max(_rel_fro(f, n) for f, n in zip(full, none)) <= \
+            2.5 * spread
+
+
+@pytest.mark.parametrize("case", ["jamba", "mixtral", "rwkv"])
+def test_train_step_kinds_on_card_equal_cpu(cuda, case):
+    """Two float32 ``train_step`` calls (2 × 128 tokens, 2 microbatches)
+    of each new family's smoke config on the card and on the CPU from one
+    initial state (jamba at capacity factor 1.25 with a padding run, so
+    that it drops): every MoE route equal, 0 host syncs inside a step, no
+    kernel launched, and per key (the loss, the grad norm, and each
+    parameter, m and v by its relative Frobenius error) the card's error
+    against the same steps in float64 on the CPU (the truth,
+    ``testing.float64_evaluation``, at one microbatch) within 1e-5 — or,
+    where larger, within 2.5× the CPU's own float32 spread on that key
+    (the largest of its runs' errors at microbatches 2 and 1 and their
+    distance from each other; the factored WKV chunk's gradients and
+    AdamW's first steps on zero-initialised tensors are ill-conditioned
+    in float32), as ``chip_smoke.py``'s train:kinds-parity."""
+    from repro_torch.runtime.boundary import host_boundary
+    from repro_torch.testing import (float64_evaluation, moe_routes,
+                                     widen_train_state)
+    from repro_torch.train import OptConfig
+    from repro_torch.train.steps import init_train_state, train_step
+    arch, over, run = {"jamba": ("jamba-v0.1-52b",
+                                 {"capacity_factor": 1.25}, 32),
+                       "mixtral": ("mixtral-8x7b", {}, 0),
+                       "rwkv": ("rwkv6-3b", {}, 0)}[case]
+    cfg = _kind_cfg(arch, "float32", **over)
+    cpu = init_train_state(0, cfg, device="cpu")
+    card = _train_state_on(cpu, cuda)
+    cpu1 = _train_state_on(card, "cpu")
+    truth = widen_train_state(cpu)
+    batches = [_kind_batch(cfg, 2, 128, s, run) for s in (0, 1)]
+    before = _flash_launches()
+    logs = {"cpu": [], "card": [], "truth": [], "cpu1": []}
+    plans = {}
+    for side, state, dev, mb in (("cpu", cpu, "cpu", 2),
+                                 ("card", card, cuda, 2),
+                                 ("truth", truth, "cpu", 1),
+                                 ("cpu1", cpu1, "cpu", 1)):
+        with (float64_evaluation() if side == "truth"
+              else contextlib.nullcontext()), moe_routes() as rec:
+            for b in batches:
+                b = {k: v.to(dev) for k, v in b.items()}
+                with host_boundary("train.step", dev,
+                                   all_threads=True) as hb:
+                    _, m = train_step(state, b, cfg, OptConfig(),
+                                      microbatches=mb)
+                if side == "card":
+                    assert hb.syncs == 0
+                logs[side].append({k: float(m[k])
+                                   for k in ("loss", "grad_norm")})
+        plans[side] = [tuple(a.detach().cpu() for a in p[:5]) for p in rec]
+    assert _flash_launches() == before
+    assert len(plans["card"]) == len(plans["cpu"])
+    for g, w in zip(plans["card"], plans["cpu"]):
+        for i in (0, 1, 3, 4):
+            assert torch.equal(g[i], w[i])
+    if case == "jamba":
+        assert sum(int((~w[4]).sum()) for w in plans["cpu"]) > 0
+
+    def leaves(st):
+        out = {("params", n): p for n, p in st["params"].named_parameters()}
+        for part in ("m", "v"):
+            out.update({(part, n): t for n, t in st[part].items()})
+        return out
+
+    def errors(st, side, want=truth, want_side="truth"):
+        out = {key: max(abs(g[key] / w[key] - 1)
+                        for g, w in zip(logs[side], logs[want_side]))
+               for key in ("loss", "grad_norm")}
+        w = leaves(want)
+        out.update({k: _rel_fro(x, w[k]) for k, x in leaves(st).items()})
+        return out
+
+    err = errors(card, "card")
+    own = {}
+    for sample in (errors(cpu, "cpu"), errors(cpu1, "cpu1"),
+                   errors(cpu, "cpu", cpu1, "cpu1")):
+        own = {k: max(own.get(k, 0.0), e) for k, e in sample.items()}
+    beyond = {k: (e, own[k]) for k, e in err.items()
+              if e > max(TRAIN_TOL, 2.5 * own[k])}
+    assert not beyond, beyond

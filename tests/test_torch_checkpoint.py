@@ -7,17 +7,26 @@ record ``"bfloat16"`` in the manifest)."""
 import json
 import threading
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.checkpoint.checkpoint import CheckpointManager as JaxManager
+from repro.checkpoint.checkpoint import tree_paths as jax_tree_paths
 from repro_torch.checkpoint.checkpoint import (CheckpointManager,
                                                tree_paths)
 from repro_torch.configs import get_smoke_config
+from repro_torch.convert import reference_tree
 from repro_torch.launch.train import MESH_SHAPE
 from repro_torch.train.steps import init_train_state
+from test_torch_train_kinds import _jax_tree
+
+# the train states of the layout and round-trip cases: a dense smoke
+# config and two with the new layer kinds (jamba: Mamba, attention, MoE
+# and MLP layers over 2 periods of 8; rwkv6-3b: time and channel mix)
+STATE_ARCHS = ["granite-3-2b", "jamba-v0.1-52b", "rwkv6-3b"]
 
 
 def _state(seed=0):
@@ -116,27 +125,59 @@ def test_atomic_tmpdir_never_latest(tmp_path):
     assert mgr.latest_step() == 1
 
 
-def test_layout_matches_the_references(tmp_path):
+def _train_state(arch, seed=0):
+    """A smoke config's bf16 train state with nonzero moments, step 3."""
+    st = init_train_state(seed, get_smoke_config(arch), device="cpu")
+    with torch.no_grad():
+        for t in list(st["m"].values()) + list(st["v"].values()):
+            t.normal_()
+    st["step"].fill_(3)
+    return st
+
+
+@pytest.mark.parametrize("case", ["leaves"] + STATE_ARCHS[1:])
+def test_layout_matches_the_references(tmp_path, case):
     """The same state saved by both packages: the same files, manifest
-    keys, paths, shapes, dtypes and npz members."""
-    rng = np.random.default_rng(0)
-    w = rng.standard_normal((3, 5)).astype(np.float32)
-    b = rng.standard_normal(4).astype(np.float32)
-    JaxManager(tmp_path / "jax").save(
-        5, {"b": jnp.asarray(b).astype(jnp.bfloat16), "step": jnp.int32(5),
-            "w": jnp.asarray(w)}, mesh_shape=(1, 1))
-    CheckpointManager(tmp_path / "port").save(
-        5, {"w": torch.from_numpy(w), "step": torch.tensor(
+    keys, paths, shapes, dtypes and npz members.  "leaves": a tree of
+    three leaves; an arch: its smoke train state, which the port writes
+    in the JAX package's tree (``convert.reference_tree``: every layer
+    leaf stacked over the periods), and each package restores the
+    other's file."""
+    if case == "leaves":
+        rng = np.random.default_rng(0)
+        w = rng.standard_normal((3, 5)).astype(np.float32)
+        b = rng.standard_normal(4).astype(np.float32)
+        jax_state = {"b": jnp.asarray(b).astype(jnp.bfloat16),
+                     "step": jnp.int32(5), "w": jnp.asarray(w)}
+        port_state = {"w": torch.from_numpy(w), "step": torch.tensor(
             5, dtype=torch.int32),
-            "b": torch.from_numpy(b).to(torch.bfloat16)},
+            "b": torch.from_numpy(b).to(torch.bfloat16)}
+    else:
+        port_state = _train_state(case)
+        jax_state = {k: v for k, v in _jax_tree(port_state).items()}
+    JaxManager(tmp_path / "jax").save(5, jax_state, mesh_shape=(1, 1))
+    CheckpointManager(tmp_path / "port").save(
+        5, port_state if case == "leaves" else reference_tree(port_state),
         mesh_shape=MESH_SHAPE)
     dirs = [tmp_path / side / "step_00000005" for side in ("jax", "port")]
     assert [sorted(p.name for p in d.iterdir()) for d in dirs] == \
         [["manifest.json", "shard_0.npz"]] * 2
     mj, mp = (json.loads((d / "manifest.json").read_text()) for d in dirs)
     assert mj == mp
-    assert mp["dtypes"] == ["bfloat16", "int32", "float32"]
-    assert mp["paths"] == ["['b']", "['step']", "['w']"]
+    if case == "leaves":
+        assert mp["dtypes"] == ["bfloat16", "int32", "float32"]
+        assert mp["paths"] == ["['b']", "['step']", "['w']"]
+    else:
+        assert any(p.startswith("['params']['periods'][1]")
+                   for p in mp["paths"]) == (case == "jamba-v0.1-52b")
+        back = JaxManager(tmp_path / "port").restore(5, jax_state)
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jax_state)):
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+        fresh = _train_state(case, seed=1)
+        CheckpointManager(tmp_path / "jax").restore(5, reference_tree(fresh))
+        for key, x in _leaves(port_state).items():
+            assert torch.equal(_bits(x), _bits(_leaves(fresh)[key])), key
     nj, np_ = (np.load(d / "shard_0.npz") for d in dirs)
     assert sorted(nj.files) == sorted(np_.files)
     for k in nj.files:
@@ -168,32 +209,44 @@ def test_bf16_leaves_read_across_packages(tmp_path):
                           .view(np.uint16), bits)
 
 
-def test_train_state_roundtrip_bit_for_bit(tmp_path):
+def _bits(t):
+    t = t.detach()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _leaves(st):
+    out = {f"params:{n}": p for n, p in st["params"].named_parameters()}
+    for part in ("m", "v"):
+        out.update({f"{part}:{n}": t for n, t in st[part].items()})
+    return dict(out, step=st["step"])
+
+
+@pytest.mark.parametrize("arch", STATE_ARCHS)
+def test_train_state_roundtrip_bit_for_bit(tmp_path, arch):
     """A bfloat16 train state (a module's parameters, named float32
-    moments, the int32 step) through save_async and restore into a fresh
-    state: every leaf equal bit for bit, and the manifest's paths name
-    the state's leaves."""
-    cfg = get_smoke_config("granite-3-2b")          # bfloat16
-    st = init_train_state(0, cfg, device="cpu")
-    with torch.no_grad():
-        for t in list(st["m"].values()) + list(st["v"].values()):
-            t.normal_()
-    st["step"].fill_(3)
+    moments, the int32 step) in the JAX package's tree
+    (``convert.reference_tree``) through save_async and restore into a
+    fresh state: every leaf equal bit for bit, and the manifest's paths
+    are the JAX package's train state's."""
+    cfg = get_smoke_config(arch)                    # bfloat16
+    st = _train_state(arch)
     mgr = CheckpointManager(tmp_path)
-    mgr.save_async(3, st, mesh_shape=MESH_SHAPE)
+    mgr.save_async(3, reference_tree(st), mesh_shape=MESH_SHAPE)
     mgr.wait()
     fresh = init_train_state(1, cfg, device="cpu")
-    mgr.restore(mgr.latest_step(), fresh)
+    mgr.restore(mgr.latest_step(), reference_tree(fresh))
     manifest = json.loads((tmp_path / "step_00000003" / "manifest.json")
                           .read_text())
-    assert manifest["paths"] == tree_paths(st)
+    assert manifest["paths"] == tree_paths(reference_tree(st))
+    assert manifest["paths"] == jax_tree_paths(_jax_tree(st))
     assert manifest["mesh_shape"] == [1, 1]
     assert "bfloat16" in manifest["dtypes"]
     for (n, a), (_, b) in zip(st["params"].named_parameters(),
                               fresh["params"].named_parameters()):
-        assert a.dtype == torch.bfloat16
-        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), n
+        assert a.dtype == b.dtype
+        assert torch.equal(_bits(a), _bits(b)), n
         assert b.requires_grad
+    assert any(p.dtype == torch.bfloat16 for p in st["params"].parameters())
     for part in ("m", "v"):
         for n in st[part]:
             assert torch.equal(st[part][n], fresh[part][n])

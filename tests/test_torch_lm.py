@@ -340,19 +340,28 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mixtral-8x7b",
                                   "rwkv6-3b"])
 def test_training_refuses_unported_layer_kinds(arch):
-    """The port serves the MoE, Mamba and RWKV kinds but does not train
-    through them yet (ROADMAP queue 1 item 7): ``init_train_state`` and
-    ``train_step`` raise, naming the item."""
+    """The MoE, Mamba and RWKV kinds train (the name is kept from when
+    ``init_train_state`` and ``train_step`` refused them): one
+    ``train_step`` of each smoke config on the CPU gives a finite loss
+    and moves every trainable matrix, and serving still builds its
+    caches."""
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.steps import init_train_state, train_step
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        init_train_state(0, cfg, device="cpu")
-    state = {"params": tt.init_params(0, cfg, device="cpu")}
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        train_step(state, batch, cfg, OptConfig())
+    state = init_train_state(0, cfg, device="cpu")
+    start = {n: p.detach().clone()
+             for n, p in state["params"].named_parameters()}
+    toks = torch.from_numpy(_prompts(2, 33, cfg.vocab_size, seed=1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    _, metrics = train_step(state, batch, cfg, OptConfig(warmup_steps=1))
+    assert torch.isfinite(metrics["loss"]) and float(metrics["loss"]) > 0
+    assert torch.isfinite(metrics["grad_norm"])
+    mats = [n for n, p in start.items() if p.dim() >= 2]
+    assert any(".ffn." in n or ".mixer." in n for n in mats)
+    for n, p in state["params"].named_parameters():
+        if p.dim() >= 2:
+            assert not torch.equal(p.detach(), start[n]), n
+    assert int(state["step"]) == 1
     tt.init_caches(1, cfg, 8, device="cpu")          # serving builds
 
 

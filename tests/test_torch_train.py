@@ -706,12 +706,17 @@ _LINE = re.compile(r"^step +\d+ loss=\d+\.\d{4} gnorm=\d+\.\d{3} "
                    r"lr=\d\.\d{2}e[-+]\d{2} \d+ms$")
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "rwkv6-3b",
+                                  "jamba-v0.1-52b"])
 def test_train_cli_prints_the_references_lines_and_resumes(tmp_path,
-                                                           capsys):
-    """``python -m repro_torch.launch.train --arch granite-3-2b --smoke
-    --steps 4 --batch 4 --seq 64 --ckpt-dir … --ckpt-every 2 --device
-    cpu``, then the same with ``--steps 6``, which resumes."""
-    args = ["--arch", "granite-3-2b", "--smoke", "--steps", "4",
+                                                           capsys, arch,
+                                                           one_thread):
+    """``python -m repro_torch.launch.train --arch <arch> --smoke --steps
+    4 --batch 4 --seq 64 --ckpt-dir … --ckpt-every 2 --device cpu``, then
+    the same with ``--steps 6``, which resumes: a dense config and two
+    with the new layer kinds (their checkpoints in the JAX package's
+    layout)."""
+    args = ["--arch", arch, "--smoke", "--steps", "4",
             "--batch", "4", "--seq", "64", "--ckpt-dir", str(tmp_path),
             "--ckpt-every", "2", "--device", "cpu"]
     tlaunch.main(args)

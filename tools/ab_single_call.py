@@ -2,7 +2,7 @@
 of two checkouts in one machine session.
 
     python3 tools/ab_single_call.py [--src DIR] [--reps 5]
-                                    [--parts k2,torus,k4f32]
+                                    [--parts k2,torus,k4f32,prefill]
 
 ``--src`` is the ``src`` directory of the checkout to time (default:
 this checkout's); the port's kernels are built into that checkout's
@@ -26,6 +26,11 @@ prints one JSON line:
   heads, hd 128, window 4096), randn inputs from seed 2, milliseconds a
   call over back-to-back calls (CUDA events, as ``chip_smoke.cuda_ms``),
   ``--reps`` readings each;
+- ``prefill_s`` (part ``prefill``): granite-3-8b's prefill at
+  ``chip_smoke.SERVE``'s shape (B 4 × 2048 prompt tokens, bf16, random
+  weights and prompts from seed 0, the serve cell's), wall seconds of
+  ``prefill_with_cache`` between synchronizes, ``--reps`` readings after
+  one warm-up call;
 - the card's name and power limit (``nvidia-smi``).
 
 Compare two checkouts only within one session: run A, B, B, A.
@@ -127,6 +132,32 @@ def k4_f32_ms(reps: int) -> dict:
     return out
 
 
+def prefill_s(reps: int) -> list:
+    import torch
+
+    from chip_smoke import SERVE
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.transformer import (init_params,
+                                                prefill_with_cache)
+    cfg = get_config(SERVE["arch"])
+    max_len = SERVE["prompt_len"] + SERVE["gen"]
+    out = []
+    with torch.inference_mode():
+        params = init_params(SERVE["seed"], cfg, device="cuda")
+        prompts = make_prompts(cfg, SERVE["batch"], SERVE["prompt_len"],
+                               SERVE["seed"], "cuda")
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill_with_cache(params, prompts, cfg, max_len)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+    del params, prompts
+    torch.cuda.empty_cache()
+    return out[1:]
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
@@ -153,6 +184,8 @@ def main(argv) -> int:
         out["k2_tree_ms"] = k2_tree_ms()
     if "k4f32" in parts:
         out["k4_f32_ms"] = k4_f32_ms(args.reps)
+    if "prefill" in parts:
+        out["prefill_s"] = prefill_s(args.reps)
     print(json.dumps(out), flush=True)
     return 0
 
