@@ -239,20 +239,28 @@ one JSON line after each, failing loudly on the first fault:
               Frobenius error per tensor; K4 launched 0 times (training
               attends through the blocked twin), no host sync inside a
               step.
-20. train   — ``launch.train.train("granite-3-2b", steps=3,
-              global_batch=4, seq_len=4096, microbatches=4)`` at the
-              full published config (40 layers, bf16, remat "full",
-              2.635 B parameters, seeded random weights) with the launch
+20. train   — ``launch.train``'s loop as ``train`` runs it
+              (``train_model`` on ``make_local_mesh``: a (1, 1) mesh over
+              a world-1 NCCL group, the sharded step on DTensors) for
+              granite-3-2b, steps=3, global_batch=4, seq_len=4096,
+              microbatches=4, at the published width and 20 of its 40
+              layers (bf16, remat "full", seeded random weights;
+              depth cut in PR 26 for the run's time limit) with the launch
               counts set to 0 just before and read just after: every loss
               and grad norm finite, the first loss within 1.0 of ln V,
               step 3, m nonzero in every tensor and every matrix moved,
               K4 launched 0 times, 0 host syncs inside every step (sync
               debug mode through ``host_boundary``), the batch uploads
-              syncless and the log reads counted.  Prints the per-step
-              seconds (median of steps 2–3), tokens/s, MFU against the
-              bf16 dense peak, peak memory, the losses, and one more
-              step's device time split (``train_split``) into the
-              blocked attention, the other matmuls, AdamW and the rest.
+              syncless and the log reads counted.  Then the same loop
+              on the unsharded step (``train_model(..., mesh=None)``) at
+              the same depth, steps and batch.  Prints the per-step
+              seconds of both (median of steps 2–3) and their ratio (the
+              1-rank DTensor path's cost), tokens/s, MFU against the bf16
+              dense peak, peak memory, the losses, PR 25's 40-layer
+              unsharded step seconds under their own name, and one more
+              unsharded step's device time split (``train_split``) into
+              the blocked attention, the other matmuls, AdamW and the
+              rest.
 21. train:checkpoint — the train:parity shape in bf16: 2 steps,
               ``save_async``, 2 more (A); a fresh state restored from
               step 2 (equal to the saved one bit for bit) and 2 more
@@ -289,23 +297,27 @@ one JSON line after each, failing loudly on the first fault:
               route once per attention layer.
 25–27. train:rwkv, train:moe, train:hybrid — training through the new
               layer kinds at full width (TRAIN_KINDS), bf16, remat
-              "full", 3 steps through ``launch.train.train_model`` (what
+              "full", 2 steps (3 until PR 26) through
+              ``launch.train.train_model`` on ``make_local_mesh`` (what
               ``launch.train.train`` drives, with the config from
-              ``dataclasses.replace``) with the launch counts set to 0
-              just before and read just after: rwkv6-3b whole (2 × 1024
-              tokens, 1 microbatch); mixtral-8x7b at 2 of 32 layers
-              (4 × 4096, 4 microbatches); jamba-v0.1-52b at one period
+              ``dataclasses.replace``: the sharded step on DTensors, the
+              MoE's constrainers and the Mamba and RWKV mixers'
+              ``local_map`` regions) with the launch counts set to 0 just
+              before and read just after: rwkv6-3b at 16 of 32 layers
+              (2 × 1024 tokens, 1 microbatch); mixtral-8x7b at 2 of 32
+              layers (4 × 4096, 4 microbatches); jamba-v0.1-52b at one period
               with 2 of 16 experts (4 × 1024, 4 microbatches).  Checks:
               finite losses, the first within 1.0 of ln V, every matrix
               moved, no all-zero m, 0 host syncs inside every step
               (backward included), no kernel of the port launched (the
-              training route attends through the blocked twin).  Prints
-              step seconds (median of steps 2–3), tokens/s, MFU, peak
-              memory, the MoE's dropped assignments, and one more step's
-              device time split into the Mamba scan, the MoE's route,
-              dispatch, experts and combine, the WKV chunks, the channel
-              mix, the blocked attention, AdamW and the rest, with the
-              idle share.
+              training route attends through the blocked twin).  Then
+              the same steps on the unsharded step (``mesh=None``).
+              Prints both runs' step seconds (step 2) and their ratio,
+              tokens/s, MFU, peak memory, the MoE's dropped assignments,
+              and one more unsharded step's device time split into the
+              Mamba scan, the MoE's route, dispatch, experts and
+              combine, the WKV chunks, the channel mix, the blocked
+              attention, AdamW and the rest, with the idle share.
 28. train:kinds-parity — the card against the CPU at float32
               (TRAIN_KINDS_PARITY): jamba's smoke width at 16 layers and
               capacity factor 1.25, mixtral's smoke width, rwkv6-3b's
@@ -318,6 +330,25 @@ one JSON line after each, failing loudly on the first fault:
               that is larger (the largest of three samples: the CPU's,
               and the CPU's and the card's at microbatches 1); every MoE
               route equal, drops on jamba.
+29. shard:parity — the sharded builders (``train.steps.build_*_step``
+              with a mesh) on a (1, 1) ``DeviceMesh`` over a world-1 NCCL
+              group (``launch.train.make_local_mesh``, which starts it
+              from a local store; the phase destroys it when done):
+              granite-3-2b at full width, 2 layers, float32, two sharded
+              train steps against the unsharded steps from one state on
+              the same batches (loss, grad norm, every parameter, m and v
+              within 1e-5 relative; 0 host syncs in a sharded step); then
+              granite-3-8b at full width and depth, bf16, B 4 × 2048: the
+              prefill through the sharded K4 route
+              (``models.attention.flash_attention_sharded``: each rank's
+              own heads, their KV expanded) equal to the unsharded K4
+              prefill bit for bit, with the launch counts set to 0 just
+              before each and read just after (K4's bf16 route once a
+              layer on each), and both prefills' times.  The ``train``
+              phase (20) and the kind phases (25–27) run
+              ``launch.train.train_model`` through the local mesh, the
+              same DTensor path, each beside the unsharded step at the
+              same depth.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 K4 one per route: route, source, the TPU kernel it replaces, launches on
@@ -3279,13 +3310,15 @@ def phase_serve(k4_serve_ms):
 
 
 # ------------------------------------------------------------ phases 19–21
-# the training path at granite-3-2b's full width: the train phase at full
-# depth through launch.train (the train_4k sequence length; 4
+# the training path at granite-3-2b's full width: the train phase through
+# launch.train's local mesh (the train_4k sequence length; 4
 # microbatches, what default_microbatches gives on one card, passed
 # explicitly as the reference's train() defaults to 1); 3 steps (4 until
-# the train phases of the new layer kinds joined the run's time limit)
-TRAIN = {"arch": "granite-3-2b", "steps": 3, "batch": 4, "seq": 4096,
-         "microbatches": 4, "peak": PEAK_BF16}
+# the train phases of the new layer kinds joined the run's time limit);
+# depth 40 → 20 (PR 26: the run's time limit, once the sharded path's
+# DTensor dispatch and shard:parity joined it)
+TRAIN = {"arch": "granite-3-2b", "n_layers": 20, "steps": 3, "batch": 4,
+         "seq": 4096, "microbatches": 4, "peak": PEAK_BF16}
 # train:parity (float32) and train:checkpoint (bf16): full width, 2
 # layers, batch 4 × 256 tokens in 2 microbatches, seeded weights and
 # SyntheticLM batches; parity is the CPU tests' float32 measure (loss and
@@ -3293,6 +3326,15 @@ TRAIN = {"arch": "granite-3-2b", "steps": 3, "batch": 4, "seq": 4096,
 # error per tensor)
 TRAIN_SMALL = {"n_layers": 2, "batch": 4, "seq": 256, "microbatches": 2,
                "seed": 0, "tol": 1e-5}
+# PR 25's granite-3-2b step seconds through the unsharded step at its
+# full depth of 40 layers (runs 53–62 on an NVIDIA H100 80GB HBM3 at
+# 700 W), printed under that name; the like-for-like figure is the train
+# phase's own unsharded run at TRAIN's depth
+TRAIN_PR25_STEP_S = (9.27, 9.95)
+# shard:parity: the train half at TRAIN_SMALL's shape, the prefill half
+# at the serve cell's model and prompt
+SHARD = {"prefill_arch": "granite-3-8b", "batch": 4, "prompt_len": 2048,
+         "seed": 0}
 
 
 def _copy_state(state, device):
@@ -3518,30 +3560,55 @@ def train_split(cfg, state, batch, opt, microbatches):
             "matmul_kernel_names": step["matmul_kernel_names"]}
 
 
+def unsharded_steps(cfg, p, label):
+    """``train_model`` with ``mesh=None`` (the one-card step without
+    placements) for the same steps, batch and microbatches as the
+    phase's run on the local mesh: (its log, its state)."""
+    from repro_torch.launch.train import train_model
+    out = train_model(cfg, p.get("steps", TRAIN_KINDS_STEPS), p["batch"],
+                      p["seq"], microbatches=p["microbatches"],
+                      device=DEVICE, mesh=None)
+    check_step_syncs(out["log"], f"{label} (unsharded)")
+    return out["log"], out["state"]
+
+
 def phase_train():
-    """``launch.train.train`` at granite-3-2b's full width and depth,
+    """``launch.train``'s loop (``train_model`` on ``make_local_mesh``, as
+    ``train`` runs it) at granite-3-2b's full width and TRAIN's depth,
     bf16, with the launch counts set to 0 just before and read just
-    after; then one more step profiled (``train_split``)."""
+    after; then the same loop on the unsharded step (``mesh=None``) at
+    the same depth, beside it (the 1-rank DTensor path's cost), and one
+    more unsharded step profiled (``train_split``)."""
+    import dataclasses
     import math
     import statistics
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import train, upload
+    from repro_torch.launch.train import make_local_mesh, train_model, upload
+    from repro_torch.train.steps import gather_train_state
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.transformer import init_params
     from repro_torch.train import OptConfig
     p = TRAIN
     t_phase = time.perf_counter()
-    cfg = get_config(p["arch"])
+    cfg = dataclasses.replace(get_config(p["arch"]), n_layers=p["n_layers"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    started = not dist.is_initialized()
+    mesh = make_local_mesh(DEVICE)
     reset_launches()
     t0 = time.perf_counter()
-    out = train(p["arch"], steps=p["steps"], global_batch=p["batch"],
-                seq_len=p["seq"], microbatches=p["microbatches"],
-                device=DEVICE)
+    try:
+        out = train_model(cfg, p["steps"], p["batch"], p["seq"],
+                          microbatches=p["microbatches"], device=DEVICE,
+                          mesh=mesh)
+        gather_train_state(out["state"])
+    finally:
+        if started:
+            dist.destroy_process_group()
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -3577,6 +3644,11 @@ def phase_train():
     step_s = statistics.median(times[1:])
     tokens = p["batch"] * p["seq"]
     flops = cfg.model_flops_per_token("train") * tokens
+    del out, state, named
+    torch.cuda.empty_cache()
+    plain_log, state = unsharded_steps(cfg, p, "train")
+    plain_times = [r["seconds"] for r in plain_log]
+    plain_s = statistics.median(plain_times[1:])
     # one more step, profiled (its own batch: the pipeline's next)
     opt = OptConfig(total_steps=p["steps"],
                     warmup_steps=max(1, p["steps"] // 10))
@@ -3593,13 +3665,19 @@ def phase_train():
           "grad_norms": [r["grad_norm"] for r in log],
           "lrs": [r["lr"] for r in log], "step_s": times,
           "median_step_s_2_to_3": step_s, "tokens_per_s": tokens / step_s,
+          "mesh": "local (1, 1), world-1 NCCL group",
+          "unsharded_step_s": plain_times,
+          "unsharded_median_step_s_2_to_3": plain_s,
+          "mesh_over_unsharded": step_s / plain_s,
+          "pr25_unsharded_step_s_at_40_layers": TRAIN_PR25_STEP_S,
           "mfu": flops / step_s / p["peak"],
           "model_flops_per_step": flops,
           "max_memory_allocated": peak, "train_call_s": wall,
           "step_syncs": [r["step_syncs"] for r in log],
-          "launches": launches, "device_split_one_step": split,
+          "launches": launches,
+          "device_split_one_unsharded_step": split,
           "split_s": split_s, "phase_s": time.perf_counter() - t_phase})
-    del out, state, batch
+    del state, batch
     torch.cuda.empty_cache()
 
 
@@ -4091,10 +4169,11 @@ def phase_lm_parity():
 # ------------------------------------------------------------ phases 25–28
 # training through the MoE, Mamba and RWKV kinds at full width: bf16,
 # remat "full", random weights from seed 0, SyntheticLM seed 0 and
-# OptConfig(total_steps=steps, warmup_steps=1) (launch.train's), 3 steps
-# through launch.train.train_model.  State at 16 B a parameter (bf16
-# weight and gradient, float32 m, v and gradient sum):
-#   train:rwkv   rwkv6-3b whole, 3.272 B parameters (~52.3 GB); batch
+# OptConfig(total_steps=steps, warmup_steps=1) (launch.train's), 2
+# steps (3 until PR 26) through launch.train.train_model.  State at 16 B
+# a parameter (bf16 weight and gradient, float32 m, v and gradient sum):
+#   train:rwkv   rwkv6-3b, 16 of its 32 layers since PR 26 (whole:
+#                3.272 B parameters, ~52.3 GB); batch
 #                cut 4 × 2048 in 2 microbatches → 2 × 1024 in 1 for the
 #                whole run's time limit: its step is host dispatch
 #                (~340k launches a microbatch at T 2048, in proportion
@@ -4112,16 +4191,17 @@ def phase_lm_parity():
 #                goes to both experts and nothing drops (train:moe and
 #                train:kinds-parity carry the routing and the drops).
 TRAIN_KINDS = {
-    "train:rwkv": {"arch": "rwkv6-3b", "over": {}, "batch": 2,
-                   "seq": 1024, "microbatches": 1,
+    "train:rwkv": {"arch": "rwkv6-3b", "over": {"n_layers": 16},
+                   "batch": 2, "seq": 1024, "microbatches": 1,
                    "cut": {"batch": "4 x 2048 in 2 microbatches -> "
-                                    "2 x 1024 in 1"}},
+                                    "2 x 1024 in 1",
+                           "n_layers": "32 -> 16 (PR 26)"}},
     "train:moe": {"arch": "mixtral-8x7b", "over": {"n_layers": 2},
                   "batch": 4, "seq": 4096, "microbatches": 4},
     "train:hybrid": {"arch": "jamba-v0.1-52b",
                      "over": {"n_layers": 8, "moe_experts": 2},
                      "batch": 4, "seq": 1024, "microbatches": 4}}
-TRAIN_KINDS_STEPS = 3
+TRAIN_KINDS_STEPS = 2          # 3 until PR 26 (the run's time limit)
 # train:kinds-parity — float32, the card against the CPU from one seeded
 # state: jamba's smoke width at 16 layers and capacity factor 1.25,
 # mixtral's smoke width, rwkv6-3b's published width at 2 layers (the
@@ -4276,21 +4356,25 @@ def train_kinds_split(cfg, state, batch, opt, microbatches):
 
 
 def phase_train_kind(label):
-    """One TRAIN_KINDS cell through ``launch.train.train_model`` (the
-    launch counts set to 0 just before and read just after, the MoE's
-    drops counted), its checks, and one more step's split."""
+    """One TRAIN_KINDS cell through ``launch.train.train_model`` on
+    ``make_local_mesh``, as ``launch.train.train`` runs it (the launch
+    counts set to 0 just before and read just after, the MoE's drops
+    counted), its checks; then the same steps on the unsharded step
+    (``mesh=None``) beside it, and one more unsharded step's split."""
     import dataclasses
     import math
     import statistics
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.launch.train import train_model, upload
+    from repro_torch.launch.train import make_local_mesh, train_model, upload
     from repro_torch.models.transformer import init_params
     from repro_torch.testing import moe_routes
     from repro_torch.train import OptConfig
+    from repro_torch.train.steps import gather_train_state
     p = TRAIN_KINDS[label]
     steps = TRAIN_KINDS_STEPS
     t_phase = time.perf_counter()
@@ -4299,11 +4383,19 @@ def phase_train_kind(label):
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    started = not dist.is_initialized()
+    mesh = make_local_mesh(DEVICE)
     reset_launches()
     t0 = time.perf_counter()
-    with moe_routes() as routes:
-        out = train_model(cfg, steps, p["batch"], p["seq"],
-                          microbatches=p["microbatches"], device=DEVICE)
+    try:
+        with moe_routes() as routes:
+            out = train_model(cfg, steps, p["batch"], p["seq"],
+                              microbatches=p["microbatches"], device=DEVICE,
+                              mesh=mesh)
+        gather_train_state(out["state"])
+    finally:
+        if started:
+            dist.destroy_process_group()
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -4341,6 +4433,11 @@ def phase_train_kind(label):
     step_s = statistics.median(times[1:])
     tokens = p["batch"] * p["seq"]
     flops = cfg.model_flops_per_token("train") * tokens
+    del out, state, named
+    torch.cuda.empty_cache()
+    plain_log, state = unsharded_steps(cfg, p, label)
+    plain_times = [r["seconds"] for r in plain_log]
+    plain_s = statistics.median(plain_times[1:])
     opt = OptConfig(total_steps=steps, warmup_steps=max(1, steps // 10))
     batch = upload(SyntheticLM(cfg.vocab_size, p["seq"], p["batch"])
                    .batch_at(steps), torch.device(DEVICE))
@@ -4361,16 +4458,21 @@ def phase_train_kind(label):
           "losses": [r["loss"] for r in log],
           "grad_norms": [r["grad_norm"] for r in log],
           "lrs": [r["lr"] for r in log], "step_s": times,
-          "median_step_s_2_to_3": step_s, "tokens_per_s": tokens / step_s,
+          "median_step_s_after_first": step_s,
+          "tokens_per_s": tokens / step_s,
+          "mesh": "local (1, 1), world-1 NCCL group",
+          "unsharded_step_s": plain_times,
+          "unsharded_median_step_s_after_first": plain_s,
+          "mesh_over_unsharded": step_s / plain_s,
           "mfu": flops / step_s / PEAK_BF16,
           "model_flops_per_step": flops,
           "max_memory_allocated": peak, "train_call_s": wall,
           "step_syncs": [r["step_syncs"] for r in log],
           "moe_dropped": dropped, "moe_assignments": assignments,
           "moe_route_calls": n_routes, "launches": launches,
-          "device_split_one_step": split, "split_s": split_s,
+          "device_split_one_unsharded_step": split, "split_s": split_s,
           "phase_s": time.perf_counter() - t_phase})
-    del out, state, batch
+    del state, batch
     torch.cuda.empty_cache()
 
 
@@ -4507,6 +4609,134 @@ def phase_train_kinds_parity():
           "phase_s": time.perf_counter() - t_phase})
 
 
+def phase_shard_parity():
+    """shard:parity (module notes, 29)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_local_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.boundary import host_boundary
+    from repro_torch.train import OptConfig
+    from repro_torch.train import steps as tsteps
+    p, q = TRAIN_SMALL, SHARD
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    started = not dist.is_initialized()
+    mesh = make_local_mesh(DEVICE)
+    try:
+        cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                                  dtype="float32", n_layers=p["n_layers"])
+        opt = OptConfig()
+        plain = tsteps.init_train_state(p["seed"], cfg, device=dev)
+        shard = _copy_state(plain, DEVICE)
+        batches = _train_batches(cfg, p["seq"], p["batch"], 2, p["seed"],
+                                 dev)
+        kw = dict(opt=opt, global_batch=p["batch"],
+                  microbatches=p["microbatches"])
+        plain_fn, _, _ = tsteps.build_train_step(cfg, None, **kw)
+        shard_fn, _, bspec = tsteps.build_train_step(cfg, mesh, **kw)
+        logs = {"plain": [], "shard": []}
+        for b in batches:
+            for name, fn in (("plain", plain_fn), ("shard", shard_fn)):
+                st = plain if name == "plain" else shard
+                t0 = time.perf_counter()
+                with host_boundary("train.step", dev,
+                                   all_threads=True) as hb:
+                    st, m = fn(st, b)
+                with host_boundary("train.log", dev) as hb_log:
+                    loss, gnorm = (float(x) for x in hb_log.read(
+                        torch.stack([m["loss"], m["grad_norm"]])))
+                logs[name].append({"loss": loss, "grad_norm": gnorm,
+                                   "step_syncs": hb.syncs,
+                                   "log_syncs": hb_log.syncs,
+                                   "log_reads": hb_log.reads,
+                                   "seconds": time.perf_counter() - t0})
+        check_step_syncs(logs["shard"], "shard:parity")
+        worst = {}
+        for key in ("loss", "grad_norm"):
+            worst[key] = max(abs(a[key] / b_[key] - 1) for a, b_ in
+                             zip(logs["shard"], logs["plain"]))
+            check(worst[key] <= p["tol"], f"shard:parity: {key} sharded "
+                  f"{[r[key] for r in logs['shard']]} vs unsharded "
+                  f"{[r[key] for r in logs['plain']]}")
+        tsteps.gather_train_state(shard)
+        errs = _rel_errors(shard, plain)
+        for part in ("params", "m", "v"):
+            name, err = max(((n, e) for n, e in errs.items()
+                             if n.startswith(part + ":")),
+                            key=lambda x: x[1])
+            worst[part] = err
+            check(err <= p["tol"], f"shard:parity: {name} sharded vs "
+                  f"unsharded relative Frobenius error {err}")
+        del plain, shard, batches
+        torch.cuda.empty_cache()
+
+        cfg8 = get_config(q["prefill_arch"])
+        params = init_params(q["seed"], cfg8, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(q["seed"])
+        toks = torch.randint(0, cfg8.vocab_size,
+                             (q["batch"], q["prompt_len"]), generator=gen,
+                             device=dev)
+        f0, _, _ = tsteps.build_prefill_step(cfg8, None)
+        f1, _, _ = tsteps.build_prefill_step(cfg8, mesh,
+                                             global_batch=q["batch"])
+        batch = {"tokens": toks}
+        reset_launches()
+        want = f0(params, batch)
+        torch.cuda.synchronize()
+        plain_launches = read_launches()
+        reset_launches()
+        got = f1(params, batch)
+        torch.cuda.synchronize()
+        shard_launches = read_launches()
+        for label, lc in (("unsharded", plain_launches),
+                          ("sharded", shard_launches)):
+            check(lc["flash_attention"] == cfg8.n_layers,
+                  f"shard:parity: the {label} prefill launched K4 "
+                  f"{lc['flash_attention']} times, expected "
+                  f"{cfg8.n_layers}")
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"shard:parity: prefill {got.shape} {got.dtype} vs "
+              f"{want.shape} {want.dtype}")
+        diff = float((got.float() - want.float()).abs().max())
+        check(torch.equal(_bits(got), _bits(want)),
+              f"shard:parity: the sharded K4 prefill differs from the "
+              f"unsharded one (max |Δ| {diff})")
+        shard_ms = cuda_ms(lambda: f1(params, batch), iters=3, warmup=1)
+        # back to plain tensors for the unsharded timing
+        params = init_params(q["seed"], cfg8, device=dev)
+        plain_ms = cuda_ms(lambda: f0(params, batch), iters=3, warmup=1)
+        del params, want, got
+        torch.cuda.empty_cache()
+    finally:
+        if started:
+            dist.destroy_process_group()
+    emit({"phase": "shard:parity", "mesh": list(mesh.shape),
+          "train": {"arch": TRAIN["arch"], "n_layers": p["n_layers"],
+                    "dtype": "float32", "batch": p["batch"],
+                    "seq": p["seq"], "microbatches": p["microbatches"],
+                    "plain_losses": [r["loss"] for r in logs["plain"]],
+                    "shard_losses": [r["loss"] for r in logs["shard"]],
+                    "worst_rel": worst, "tol": p["tol"],
+                    "shard_step_syncs": [r["step_syncs"]
+                                         for r in logs["shard"]],
+                    "plain_step_s": [r["seconds"] for r in logs["plain"]],
+                    "shard_step_s": [r["seconds"] for r in logs["shard"]]},
+          "prefill": {"arch": q["prefill_arch"], "n_layers": cfg8.n_layers,
+                      "dtype": cfg8.dtype, "batch": q["batch"],
+                      "prompt_len": q["prompt_len"], "bit_equal": True,
+                      "k4_launches_sharded": shard_launches[
+                          "flash_attention"],
+                      "k4_launches_unsharded": plain_launches[
+                          "flash_attention"],
+                      "sharded_ms": shard_ms, "unsharded_ms": plain_ms},
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
@@ -4582,6 +4812,7 @@ def main(argv) -> int:
     for label in TRAIN_KINDS:
         phase_train_kind(label)
     phase_train_kinds_parity()
+    phase_shard_parity()
     kernels = []
     for rec, launches, name, source, replaces in (
             (k1, main_run["launches"], "qap_objective",

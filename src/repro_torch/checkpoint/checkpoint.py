@@ -30,8 +30,11 @@ stacked on the host along a new first axis, and restored by copying each
 slice back into its tensor.  ``convert.reference_tree`` uses it to write
 a model's train state in the JAX package's tree (each layer leaf stacked
 over the periods), so that either package restores the other's file.
-Restoring into another mesh (the JAX package's elastic path) is not
-ported: one card has none.
+``restore(..., mesh=, shardings=)`` is the elastic restart: each leaf
+is placed with ``distribute_tensor`` onto the target ``DeviceMesh`` at
+its spec (a ``models.sharding`` spec or a tuple of DTensor placements),
+whatever mesh saved it.  A DTensor leaf is saved whole
+(``full_tensor()``, a collective every rank takes part in).
 """
 
 from __future__ import annotations
@@ -97,6 +100,8 @@ def _host(t, hb) -> np.ndarray:
     if isinstance(t, Stacked):
         return np.stack([_host(x, hb) for x in t.parts])
     t = t.detach()
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     bf16 = t.dtype == torch.bfloat16
     bits = t.view(torch.int16) if bf16 else t
     arr = np.asarray(hb.read(bits.reshape(-1))).reshape(tuple(t.shape))
@@ -126,6 +131,51 @@ def _tensor(arr: np.ndarray, dtype_str: str):
     if dtype_str == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def _is_spec(x) -> bool:
+    """A spec (one entry per dim: None, a mesh dim name, a tuple of
+    names) or a tuple of DTensor placements: a leaf of ``shardings``."""
+    from torch.distributed.tensor import Placement
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, (str, Placement))
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def _spec_leaves(tree) -> list:
+    if _is_spec(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
+    return [x for t in tree for x in _spec_leaves(t)]
+
+
+def _place(saved, mesh, spec):
+    """A restored leaf on ``mesh`` at ``spec``: each rank keeps its own
+    shard of the (identical) host copy."""
+    from torch.distributed.tensor import Placement, distribute_tensor
+
+    from ..models.sharding import placements
+    pl = spec if spec and all(isinstance(e, Placement) for e in spec) \
+        else placements(mesh, spec)
+    return distribute_tensor(saved.to(mesh.device_type), mesh, pl,
+                             src_data_rank=None)
+
+
+def _rebuild(tree, it):
+    """``tree``'s structure with its leaves taken from ``it`` in
+    :func:`tree_leaves` order."""
+    if isinstance(tree, torch.nn.Module):
+        tree = dict(tree.named_parameters())
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out[k] = _rebuild(tree[k], it)
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(x, it) for x in tree)
+    return next(it)
 
 
 def _snapshot(state) -> list:
@@ -206,12 +256,17 @@ class CheckpointManager:
     def restore(self, step: int, target_tree, mesh=None, shardings=None):
         """Restore into ``target_tree``: every leaf is copied in place into
         the target's tensor (on its device), after the leaf count, shapes
-        and types are checked.  Returns ``target_tree``."""
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore: placing shards on a mesh (the "
-                "elastic restart) waits with the XLA-bound part of ROADMAP "
-                "queue 1 item 7; one card has no mesh")
+        and types are checked.  Returns ``target_tree``.
+
+        With ``mesh`` and ``shardings`` (a tree of specs or placements,
+        leaf for leaf with the target, as ``train.steps.train_state_specs``
+        gives them) each leaf is instead placed on ``mesh`` with
+        ``distribute_tensor`` — the elastic restart onto a mesh of any
+        size — and the same tree is returned with DTensor leaves (a
+        module as the dict of its named parameters)."""
+        if (mesh is None) != (shardings is None):
+            raise ValueError("CheckpointManager.restore: give both mesh "
+                             "and shardings, or neither")
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         data = np.load(d / "shard_0.npz")
@@ -230,6 +285,13 @@ class CheckpointManager:
             if saved.dtype != tgt.dtype:
                 raise ValueError(f"dtype mismatch at {path}: "
                                  f"{saved.dtype} vs {tgt.dtype}")
+        if mesh is not None:
+            specs = _spec_leaves(shardings)
+            if len(specs) != len(leaves):
+                raise ValueError(f"shardings have {len(specs)} leaves, the "
+                                 f"checkpoint {len(leaves)}")
+            return _rebuild(target_tree, iter(
+                _place(x, mesh, s) for x, s in zip(leaves, specs)))
         with torch.no_grad():
             for saved, tgt in zip(leaves, t_leaves):
                 _copy_into(tgt, saved)

@@ -96,12 +96,35 @@ def _check(q, k, v, window):
                          f"{k.dtype}, {v.dtype}")
 
 
+META_OBSERVERS: list = []
+
+
+def attended_pairs(t: int, window: int = 0) -> int:
+    """The (query, key) pairs causal attention over t positions keeps
+    (each query its last ``window`` keys when ``window`` > 0)."""
+    if not window or window >= t:
+        return t * (t + 1) // 2
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def flash_flops(b: int, t: int, h: int, hd: int, window: int = 0) -> int:
+    """K4's analytic count: q·kᵀ and p·v, 2·hd each per kept pair."""
+    return 4 * b * h * hd * attended_pairs(t, window)
+
+
 def flash_attention_kernel(q, k, v, *, window: int = 0):
     """Causal attention of q over k, v (sliding-window when ``window`` >
     0): K4 for CUDA tensors (bfloat16 through the sm90 kernel, float32
-    through the float32 one), the plain version for CPU tensors."""
+    through the float32 one), the plain version for CPU tensors.  Meta
+    tensors (a shape-only trace, as the dry-run makes) give an empty
+    output of q's shape and tell each of ``META_OBSERVERS`` the launch
+    (``fn(q, k, v, window)``)."""
     import torch
     _check(q, k, v, window)
+    if q.is_meta:
+        for fn in META_OBSERVERS:
+            fn(q, k, v, window)
+        return torch.empty_like(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(

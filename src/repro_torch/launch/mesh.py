@@ -1,5 +1,14 @@
-"""VieM-optimized device placement for a fleet, and its closed loop — the
-port's copy of the JAX package's ``launch/mesh.py``.
+"""Production mesh construction, VieM-optimized device placement for a
+fleet, and its closed loop — the port's copy of the JAX package's
+``launch/mesh.py``.
+
+``make_production_mesh`` builds the logical mesh as a torch
+``DeviceMesh``:
+  single-pod: (data=16, model=16)            — 256 ranks
+  multi-pod:  (pod=2, data=16, model=16)     — 512 ranks
+over a process group of that many ranks (a real one on a fleet, the
+``"fake"`` backend in the dry-run); importing this module touches no
+process group.
 
 ``viem_device_order`` is the paper integrated as a launch feature: given a
 compiled step's HLO text, extract the logical-device traffic graph
@@ -9,17 +18,46 @@ torus per pod (repro_torch.topology.tpu_v5e_torus) — and solve the sparse
 QAP for the logical→physical assignment.  ``fleet_monitor`` maps once and
 keeps watching (:mod:`repro_torch.monitor`).
 
-Left out: the JAX package's ``make_production_mesh``, which builds a
-``jax.sharding.Mesh`` from the returned order; it belongs with the
-XLA-bound launch modules (ROADMAP.md queue 1, item 7).  Every function
-here takes ``device=``: ``"cuda"`` unless the caller asks for ``"cpu"``.
+Every function here takes ``device=``: ``"cuda"`` unless the caller asks
+for ``"cpu"``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["fleet_model", "fleet_monitor", "viem_device_order"]
+__all__ = ["fleet_model", "fleet_monitor", "make_production_mesh",
+           "viem_device_order"]
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None,
+                         device=None):
+    """The production ``DeviceMesh``: (16, 16) over ("data", "model"), or
+    (2, 16, 16) over ("pod", "data", "model").  ``devices`` is
+    :func:`viem_device_order`'s order (``devices[i]`` the rank that
+    logical device i uses), which becomes the mesh's rank layout; by
+    default ranks are laid out in order.  Needs an initialised process
+    group of 256 or 512 ranks; ``device`` is the mesh's device type,
+    ``cuda`` unless the caller asks for ``cpu``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..runtime.device import resolve_device
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        have = dist.get_world_size() if dist.is_initialized() else None
+        raise RuntimeError(f"make_production_mesh: needs a process group "
+                           f"of {n} ranks, have {have}")
+    ranks = (torch.arange(n) if devices is None
+             else torch.as_tensor(np.asarray(devices, dtype=np.int64)))
+    if sorted(ranks.tolist()) != list(range(n)):
+        raise ValueError(f"make_production_mesh: devices must order the "
+                         f"{n} ranks")
+    return DeviceMesh(resolve_device(device).type, ranks.reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def fleet_model(machine_model: str = "tree", pods: int = 2):

@@ -10,9 +10,14 @@ modality frontend):
         --steps 4 --batch 4 --seq 4096 --microbatches 4
 
 Runs on ``cuda`` unless ``--device cpu`` (no fallback: without a card
-the default raises).  One card has no mesh: checkpoints record
-``mesh_shape`` (1, 1), and hold the train state in the JAX package's
-layout (leaves stacked over periods, the same paths).  Each step's
+the default raises).  :func:`train` builds the local mesh
+(:func:`make_local_mesh`: the reference's rule over the ranks present;
+on one card a (1, 1) mesh over a world-1 NCCL group the launcher starts
+from a local store, with no network) and passes it to
+``build_train_step``, as the reference does; :func:`train_model` takes a
+mesh or none.  Checkpoints record the mesh's shape and hold the train
+state in the JAX package's layout (leaves stacked over periods, the
+same paths).  Each step's
 batch is uploaded through page-locked memory without blocking (boundary
 ``train.batch``); the step itself
 (forward, backward, AdamW) runs inside the boundary ``train.step``,
@@ -40,11 +45,32 @@ from ..runtime.boundary import host_boundary
 from ..runtime.device import resolve_device
 from ..runtime.fault_tolerance import Action, StragglerMonitor
 from ..train import OptConfig
-from ..train.steps import build_train_step, init_train_state
+from ..train.steps import (build_train_step, gather_train_state,
+                           init_train_state)
 
-__all__ = ["MESH_SHAPE", "main", "train", "train_model", "upload"]
+__all__ = ["MESH_SHAPE", "main", "make_local_mesh", "train", "train_model",
+           "upload"]
 
 MESH_SHAPE = (1, 1)             # (data, model) of one card
+
+
+def make_local_mesh(device=None):
+    """A ("data", "model") ``DeviceMesh`` over the ranks present: model
+    the largest of 16, 8, 4, 2, 1 dividing the rank count, data the
+    rest (the reference's ``launch/train.py:26`` rule).  Without a
+    process group it starts a world-1 one itself (NCCL on a card, gloo
+    on the CPU) from an in-process ``HashStore``: no network."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
+    n = dist.get_world_size()
+    model = next(c for c in (16, 8, 4, 2, 1) if n % c == 0)
+    return DeviceMesh(dev.type, torch.arange(n).reshape(n // model, model),
+                      mesh_dim_names=("data", "model"))
 
 
 def upload(batch: dict, device) -> dict:
@@ -66,30 +92,46 @@ def train(arch: str, steps: int, global_batch: int, seq_len: int,
           ckpt_every: int = 10, microbatches: int = 1,
           log_every: int = 1, device=None) -> dict:
     """:func:`train_model` of ``arch``'s config (its smoke config with
-    ``smoke``): every shipped config, of any layer kind, trains through
-    the same code."""
+    ``smoke``) on :func:`make_local_mesh`: every shipped config, of any
+    layer kind, trains through the same code.  A process group this call
+    starts, it destroys at the end, after gathering the returned state
+    back into plain tensors."""
+    import torch.distributed as dist
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    return train_model(cfg, steps, global_batch, seq_len,
-                       ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
-                       microbatches=microbatches, log_every=log_every,
-                       device=device)
+    started = not dist.is_initialized()
+    mesh = make_local_mesh(device)
+    try:
+        out = train_model(cfg, steps, global_batch, seq_len,
+                          ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                          microbatches=microbatches, log_every=log_every,
+                          device=device, mesh=mesh)
+        if started:
+            gather_train_state(out["state"])
+        return out
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def train_model(cfg, steps: int, global_batch: int, seq_len: int,
                 ckpt_dir: str | None = None, ckpt_every: int = 10,
                 microbatches: int = 1, log_every: int = 1,
-                device=None) -> dict:
+                device=None, mesh=None) -> dict:
     """Train ``cfg`` for ``steps`` steps (resuming from the latest
     checkpoint in ``ckpt_dir``, if any).  Returns ``final_loss`` and
     ``state``, as the JAX package does, and ``log``: per step run, its
     ``step``, ``loss``, ``grad_norm``, ``lr``, ``seconds`` (upload, step
     and the log read, as the log line prints), and on CUDA the syncs
     each boundary saw (``step_syncs``, ``batch_syncs``, ``log_syncs``
-    beside ``log_reads``; None on the CPU)."""
+    beside ``log_reads``; None on the CPU).  With a ``mesh`` the state
+    is placed on it at the first step (after any restore) and the step
+    runs on DTensors."""
     dev = resolve_device(device)
     opt = OptConfig(total_steps=steps, warmup_steps=max(1, steps // 10))
-    step_fn = build_train_step(cfg, opt=opt, global_batch=global_batch,
-                               microbatches=microbatches)
+    step_fn, _, _ = build_train_step(cfg, mesh, opt=opt,
+                                     global_batch=global_batch,
+                                     microbatches=microbatches)
+    mesh_shape = MESH_SHAPE if mesh is None else tuple(mesh.shape)
 
     data = SyntheticLM(cfg.vocab_size, seq_len, global_batch,
                        frontend_tokens=cfg.frontend_tokens,
@@ -138,7 +180,7 @@ def train_model(cfg, steps: int, global_batch: int, seq_len: int,
                       flush=True)
             if mgr is not None and (step + 1) % ckpt_every == 0:
                 mgr.save_async(step + 1, reference_tree(state),
-                               mesh_shape=MESH_SHAPE)
+                               mesh_shape=mesh_shape)
     finally:
         pre.close()
         if mgr is not None:

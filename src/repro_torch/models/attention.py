@@ -8,11 +8,14 @@ Layouts are the JAX package's: projections wq (d, H, hd), wk and wv
 
   * prefill attention is K4 (:func:`~repro_torch.kernels.flash_attention.
     flash_attention_kernel`) for both :func:`attention_block` and the
-    model's prefill; on one card there is no mesh, so the JAX package's
-    pure-JAX blocked ``flash_attention`` and its sharded Pallas branch
-    collapse into this one core (CPU tensors take K4's plain version);
-    a prefill continuation (``q_offset`` ≠ 0) attends through
+    model's prefill (CPU tensors take K4's plain version); a prefill
+    continuation (``q_offset`` ≠ 0) attends through
     :func:`blocked_flash_attention`, the reference's blocked core,
+  * on a device mesh (``attention_block(..., mesh=)``, q, k and v
+    DTensors) :func:`flash_attention_sharded` is the JAX package's
+    ``_flash_kernel_sharded``: heads@``model``, batch@batch axes, each
+    rank expanding its own heads' KV and running K4 (or, training, the
+    blocked core) on its local tensors,
   * training (``attention_block(..., train=True)``) differentiates
     through :func:`blocked_flash_attention`, a torch-ops twin of the
     JAX package's blocked ``flash_attention`` — the core the reference
@@ -178,13 +181,78 @@ def blocked_flash_attention(q, k, v, cfg, q_offset: int = 0):
     return out.permute(0, 3, 4, 1, 2, 5).reshape(b, t, h, hd)
 
 
-def attention_block(params, x, positions, cfg, train: bool = False):
+def sharded_layout(cfg, mesh, batch: int):
+    """The sharded attention's layout, the reference's
+    (``models/attention.py:156–170``): (q spec, k/v spec, ``kv_ids``),
+    q at heads@``model`` when the heads divide it and batch@batch axes
+    (replicated when ``batch`` does not divide them), k and v at
+    batch@batch axes; ``kv_ids(rank_model, h_local)`` the KV heads a
+    rank expands for its own heads, ``(rank_model · h_local +
+    arange(h_local)) // g``."""
+    from . import sharding as shd
+    ba = shd.batch_axes(mesh)
+    if batch % shd.n_batch(mesh):
+        ba = ()                  # small batch: replicate
+    h_ok = cfg.n_heads_eff % shd.mesh_size(mesh, "model") == 0
+    bsp = shd._entry(ba)
+    g = cfg.n_heads_eff // cfg.n_kv_heads
+
+    def kv_ids(rank_model: int, h_local: int, device=None):
+        base = rank_model * h_local if h_ok else 0
+        return (base + torch.arange(h_local, device=device)) // g
+
+    return ((bsp, None, "model" if h_ok else None, None),
+            (bsp, None, None, None), kv_ids)
+
+
+def flash_attention_sharded(q, k, v, cfg, mesh, train: bool = False):
+    """Attention over a mesh, the JAX package's ``_flash_kernel_sharded``
+    (``models/attention.py:144``) as a ``local_map`` over
+    :func:`sharded_layout`: each rank expands its own heads' KV and runs
+    K4 (``train`` False) or :func:`blocked_flash_attention` (``train``
+    True, which autograd follows) on its local tensors; the result is a
+    DTensor with q's placements.  Each rank's k and v gradients cover its
+    own heads only, so they come back partial over ``model``."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from . import sharding as shd
+    qspec, kvspec, kv_ids = sharded_layout(cfg, mesh, q.shape[0])
+    qp, kvp = shd.placements(mesh, qspec), shd.placements(mesh, kvspec)
+    kv_grad = kvp
+    rank = 0
+    if qspec[2] is not None:
+        i = tuple(mesh.mesh_dim_names).index("model")
+        kv_grad = kvp[:i] + (Partial(),) + kvp[i + 1:]
+        rank = mesh.get_local_rank("model")
+
+    def local(ql, kl, vl):
+        # made on the device: a host copy would sync
+        ids = kv_ids(rank, ql.shape[2], ql.device)
+        kl, vl = kl.index_select(2, ids), vl.index_select(2, ids)
+        if train:
+            return blocked_flash_attention(ql, kl, vl, cfg)
+        return flash_attention_kernel(ql.contiguous(), kl.contiguous(),
+                                      vl.contiguous(),
+                                      window=cfg.sliding_window)
+
+    return local_map(local, out_placements=list(qp),
+                     in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def attention_block(params, x, positions, cfg, train: bool = False,
+                    mesh=None):
     """Full attention sub-layer: qkv → attention → out proj.  Prefill
     (``train`` False) attends through K4; training (``train`` True)
-    through :func:`blocked_flash_attention`, which autograd can
-    follow."""
+    through :func:`blocked_flash_attention`, which autograd can follow.
+    With a ``mesh`` (x and the weights DTensors) the attention is
+    :func:`flash_attention_sharded`."""
     q, k, v = _qkv(params, x, positions, cfg)
-    if train:
+    if mesh is not None:
+        o = flash_attention_sharded(q, k, v, cfg, mesh, train=train)
+    elif train:
         o = blocked_flash_attention(q, k, v, cfg)
     else:
         o = flash_attention(q, k, v, cfg)

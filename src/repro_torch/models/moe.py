@@ -7,20 +7,29 @@ its halves, and w2's contraction sums over the halves in the combine.
 SwiGLU splits elementwise over F, so the math is exact.  The reference
 picks s so that E·s equals its data axis (``cfg.moe_ep_split``); the port
 keeps the same split, which fixes the weights' layout and the combine's
-terms, though one card has no mesh.
+terms on any mesh, one card's included.
 
 Dataflow per layer, the reference's with its ``jax.vmap`` over batch rows
-as a leading batch axis (its ``ep_constrain``/``batch_constrain``
-sharding hooks have no meaning on one card and are dropped):
+as a leading batch axis:
 
-  tokens (B, T, D)
+  tokens (B@batch, T, D)
     → route (:func:`_route`: a stable sort per row)
     → scatter into buf (B, E_v, cap + 1, D); the last slot takes the
       tokens past capacity and is cut off
-    → expert einsums over (B, E_v, cap, D)
+    → ep_constrain: buf to E_v@data                              [a2a]
+    → expert einsums over (B, E_v, cap, D), E_v@data, F/s@model local;
+      h and y pinned by ep_constrain too
+    → batch_constrain: y back to B@batch                         [a2a back]
     → gather from y with a zero slot appended (a dropped token reads 0)
       and a weighted combine, each token's k·s terms added in a fixed
       order (:func:`_combine`)
+
+On a device mesh (``mesh=``, x and the weights DTensors) the constrainers
+are ``models.sharding.moe_constrainers``' redistributions, and the
+route, scatter and combine, which DTensor has no strategy for (a stable
+sort, a ``cap + 1``-slot scatter), run per batch shard in a
+``local_map`` (``sharding.local_rows``); the expert einsums run on the
+DTensors.  Without a mesh the hooks are the identity.
 
 Nothing here reads a value back to the host: capacity, the drop slot
 and every index are computed on the device.
@@ -157,23 +166,46 @@ def _dispatch(x, se, st, pos_c, ev: int, cap: int):
     return buf.reshape(b, ev, cap + 1, d)[:, :, :cap]
 
 
-def _experts(params, buf):
-    """The SwiGLU expert FFNs on every slot: (B, E_v, cap, D) → same."""
+def _experts(params, buf, ep_constrain=None):
+    """The SwiGLU expert FFNs on every slot: (B, E_v, cap, D) → same;
+    ``ep_constrain`` pins h and y to the EP layout (pinning h pins the
+    backward cotangent too)."""
+    c = ep_constrain or (lambda z: z)
     h = torch.einsum("becd,edf->becf", buf, params["w1"])
-    h = silu(h) * torch.einsum("becd,edf->becf", buf, params["w3"])
-    return torch.einsum("becf,efd->becd", h, params["w2"])
+    h = c(silu(h) * torch.einsum("becd,edf->becf", buf, params["w3"]))
+    return c(torch.einsum("becf,efd->becd", h, params["w2"]))
 
 
-def moe_ffn(params, x, cfg):
-    """x: (B, T, D) → (out (B, T, D), aux_loss scalar float32)."""
+def moe_ffn(params, x, cfg, ep_constrain=None, batch_constrain=None,
+            mesh=None):
+    """x: (B, T, D) → (out (B, T, D), aux_loss scalar float32).
+
+    ``ep_constrain`` pins (B, E_v, cap, ·) buffers to E_v@data (the a2a);
+    ``batch_constrain`` pins them back to B@batch after expert compute;
+    ``mesh``: x and the weights are DTensors on it (module docstring)."""
+    from .sharding import local_rows, rows_of
     t = x.shape[1]
     e, k = cfg.moe_experts, cfg.moe_top_k
     ev = params["w1"].shape[0]
     split = ev // e
     cap = capacity(cfg, t)
-    se, st, sw, pos, keep, order, aux = _route(x, params["router"], e, k,
-                                               cap, split)
-    pos_c = torch.where(keep, pos, cap)                   # cap → dropped
-    y = _experts(params, _dispatch(x, se, st, pos_c, ev, cap))
-    out = _combine(y, se, sw, pos_c, order, t, k * split)
+    ep_constrain = ep_constrain or (lambda z: z)
+    batch_constrain = batch_constrain or (lambda z: z)
+    rows = rows_of(mesh, x) if mesh is not None else None
+
+    def plan(xl, router):
+        se, st, sw, pos, keep, order, aux = _route(xl, router, e, k, cap,
+                                                   split)
+        pos_c = torch.where(keep, pos, cap)               # cap → dropped
+        return (_dispatch(xl, se, st, pos_c, ev, cap), se, sw, pos_c,
+                order, aux)
+
+    buf, se, sw, pos_c, order, aux = local_rows(
+        plan, mesh, rows, (x,), (params["router"],), n_out=6)
+    y = _experts(params, ep_constrain(buf), ep_constrain)  # E_v@data
+    y = batch_constrain(y)                                # → B@batch
+    out = local_rows(
+        lambda yl, sel, swl, pcl, ol: _combine(yl, sel, swl, pcl, ol, t,
+                                               k * split),
+        mesh, rows, (y, se, sw, pos_c, order))
     return out, aux.mean()

@@ -34,6 +34,23 @@ one layer's activations are live in the backward, not a period's.  A
 recomputed MoE layer routes its tokens again from the same saved input
 through the same ops, so it routes them as the forward did.
 
+On a device mesh (``forward(..., mesh=)``, the parameters and the batch
+DTensors placed by ``models.sharding``, as ``train.steps``' builders
+place them) each layer takes its weights in their compute layout
+(``sharding.gathered``: the FSDP shard all-gathered, the TP shard kept;
+the MoE experts stay E_v@data), ``constrain`` pins the (B, T, D)
+activations to batch-over-(pod, data) after the embedding and after
+each layer (the reference pins them at each period's ends; the extra
+pins are no-ops), and ``moe_c`` = (ep_c, bt_c) is handed to the MoE
+FFNs.  Attention goes through ``attention.flash_attention_sharded``; the
+Mamba and RWKV time-mix mixers, whose scan, ``torch.cat`` steps and
+cumulative sums DTensor has no strategy for, run per batch shard in a
+``local_map`` with their weights gathered whole (``sharding.local_rows``:
+the reference's RWKV projections are FSDP-only, so that is its layout;
+its Mamba keeps d_inner over ``model``, which the port does not yet);
+the MLP and channel-mix FFNs, the norms and the LM head run on the
+DTensors.
+
 Decode caches are a list with one dict per layer, keyed by what the
 layer carries: ``attn`` {k, v}, ``mamba`` {conv, ssm}, ``rwkv`` {x, s}
 and ``cmix`` {x}; :func:`prefill_with_cache` fills them and
@@ -50,7 +67,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..runtime.device import resolve_device
-from .attention import (_qkv, attention_block, decode_attention_block,
+from . import sharding as shd
+from .attention import (NEG_INF, _qkv, attention_block,
+                        decode_attention_block,
                         flash_attention, init_attention, init_kv_cache)
 from .layers import (embed_tokens, init_embeddings, init_mlp, lm_logits, mlp,
                      rms_norm)
@@ -62,7 +81,8 @@ from .rwkv import (decode_rwkv_channel_mix, decode_rwkv_time_mix,
                    rwkv_channel_mix, rwkv_time_mix)
 
 __all__ = ["DecoderLayer", "Transformer", "check_supported", "decode_step",
-           "forward", "init_caches", "init_params", "prefill_with_cache"]
+           "forward", "init_caches", "init_params", "prefill_with_cache",
+           "replace_parameters"]
 
 MIXERS = ("attn", "mamba", "rwkv")
 FFNS = ("mlp", "moe", "channelmix")
@@ -122,6 +142,22 @@ class Transformer(nn.Module):
                        logits_last_only=logits_last_only)
 
 
+def replace_parameters(module, fn) -> None:
+    """Each parameter of ``module`` replaced, in place, by a parameter
+    holding ``fn(name, tensor)`` (``requires_grad`` kept): the parameter
+    dicts' entries by key, other modules' by attribute."""
+    with torch.no_grad():
+        for name, p in list(module.named_parameters()):
+            mod_name, _, leaf = name.rpartition(".")
+            mod = module.get_submodule(mod_name)
+            new = nn.Parameter(fn(name, p.detach()),
+                               requires_grad=p.requires_grad)
+            if isinstance(mod, nn.ParameterDict):
+                mod[leaf] = new
+            else:
+                setattr(mod, leaf, new)
+
+
 # ---------------------------------------------------------------- params
 _MIXER_INIT = {"attn": init_attention, "mamba": init_mamba,
                "rwkv": init_rwkv_time_mix}
@@ -159,23 +195,123 @@ def _positions(b: int, t: int, device):
     return torch.arange(t, device=device).expand(b, t)
 
 
-def _layer_apply(p, h, positions, cfg, train: bool = False):
-    """One layer of the forward: (h, the MoE aux loss or None)."""
+class _Settled(torch.autograd.Function):
+    """Redistribute to ``pl`` (partial sums all-reduced); the gradient
+    passes back as it comes, replicated over ``model`` — as the logical
+    gradient of a sum of partials is.  (A plain redistribute would hand
+    back a partial gradient, for which DTensor gathers the whole weight
+    of the projection before it.)"""
+
+    @staticmethod
+    def forward(ctx, h, mesh, pl):
+        return h.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Entered(torch.autograd.Function):
+    """The identity, whose gradient is settled to ``pl`` (Megatron's f:
+    the partial input gradients of the projections that follow are
+    all-reduced once, here; left partial, DTensor would gather whole
+    weights to take them further back)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.mesh, ctx.pl = mesh, pl
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.pl), None, None
+
+
+def _enter(x, mesh):
+    """A sublayer's input on a mesh (:class:`_Entered`)."""
+    return _Entered.apply(x, mesh, shd.rows_of(mesh, x))
+
+
+def _settle(h, mesh):
+    """An activation in the row layout (batch over the batch axes,
+    replicated elsewhere): partial sums all-reduced."""
+    return _Settled.apply(h, mesh, shd.rows_of(mesh, h))
+
+
+def _embed_sharded(tokens, table, mesh):
+    """The token rows of a vocab-sharded table (a masked partial sum over
+    ``data``), reduced to the row layout."""
+    return _settle(torch.nn.functional.embedding(tokens, table), mesh)
+
+
+class _Compute:
+    """A layer's tensors in their compute layout on ``mesh``
+    (``sharding.gathered``); the MoE experts keep their E_v@data."""
+
+    def __init__(self, p, mesh):
+        self.kind = p.kind
+        self.norm1 = shd.gathered(p.norm1, mesh)
+        self.norm2 = shd.gathered(p.norm2, mesh)
+        self.mixer = {k: shd.gathered(t, mesh) for k, t in p.mixer.items()}
+        keep = p.kind[1] == "moe"
+        self.ffn = {k: shd.gathered(t, mesh, keep_data=keep and k != "router")
+                    for k, t in p.ffn.items()}
+
+
+def _whole(t, mesh):
+    """A weight replicated on every rank (a ``local_map`` region's)."""
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(mesh, (Replicate(),) * mesh.ndim)
+
+
+def _mixer_local(fn, params, x, cfg, mesh):
+    """``fn(params, x, cfg)`` (a Mamba or RWKV time-mix block's output)
+    per batch shard, its weights gathered whole."""
+    if mesh is None:
+        return fn(params, x, cfg)
+    names = list(params)
+
+    def local(xl, *ws):
+        return fn(dict(zip(names, ws)), xl, cfg)
+    return shd.local_rows(local, mesh, shd.rows_of(mesh, x), (x,),
+                          tuple(_whole(params[k], mesh) for k in names))
+
+
+def _rwkv(params, x, cfg):
+    return rwkv_time_mix(params, x, cfg)[0]
+
+
+def _layer_apply(p, h, positions, cfg, train: bool = False, moe_c=None,
+                 mesh=None):
+    """One layer of the forward: (h, the MoE aux loss or None).  On a
+    mesh each sublayer's output is settled to the row layout (the TP
+    all-reduce of a projection's partial sums) before its residual
+    add."""
+    settle = _settle if mesh is not None else (lambda t, m: t)
+    enter = _enter if mesh is not None else (lambda t, m: t)
+    if mesh is not None:
+        p = _Compute(p, mesh)
     mixer, ffn = p.kind
-    x = rms_norm(h, p.norm1)
+    x = enter(rms_norm(h, p.norm1), mesh)
     if mixer == "attn":
-        h = h + attention_block(p.mixer, x, positions, cfg, train=train)
+        out = attention_block(p.mixer, x, positions, cfg, train=train,
+                              mesh=mesh)
     elif mixer == "mamba":
-        h = h + mamba_block(p.mixer, x, cfg)
+        out = _mixer_local(mamba_block, p.mixer, x, cfg, mesh)
     else:
-        h = h + rwkv_time_mix(p.mixer, x, cfg)[0]
-    x = rms_norm(h, p.norm2)
+        out = _mixer_local(_rwkv, p.mixer, x, cfg, mesh)
+    h = h + settle(out, mesh)
+    x = enter(rms_norm(h, p.norm2), mesh)
+    aux = None
     if ffn == "mlp":
-        return h + mlp(p.ffn, x, cfg.mlp_type), None
-    if ffn == "moe":
-        out, aux = moe_ffn(p.ffn, x, cfg)
-        return h + out, aux
-    return h + rwkv_channel_mix(p.ffn, x)[0], None
+        out = mlp(p.ffn, x, cfg.mlp_type)
+    elif ffn == "moe":
+        ep_c, bt_c = moe_c if moe_c else (None, None)
+        out, aux = moe_ffn(p.ffn, x, cfg, ep_constrain=ep_c,
+                           batch_constrain=bt_c, mesh=mesh)
+    else:
+        out = rwkv_channel_mix(p.ffn, x)[0]
+    return h + settle(out, mesh), aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -197,43 +333,58 @@ def _dots_policy(ctx, op, *args, **kwargs):
 _DOTS = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
-def _train_layer(p, h, positions, cfg):
-    """One layer of the training forward under ``cfg.remat``."""
+def _train_layer(p, h, positions, cfg, moe_c=None, mesh=None):
+    """One layer of the training forward under ``cfg.remat`` (on a mesh
+    the weights' gather is inside the checkpoint: the backward gathers
+    again, as ZeRO-3 does)."""
     if cfg.remat == "none":
-        return _layer_apply(p, h, positions, cfg, train=True)
+        return _layer_apply(p, h, positions, cfg, True, moe_c, mesh)
     if cfg.remat not in ("full", "dots"):
         raise ValueError(f"{cfg.name}: remat {cfg.remat!r}; choose none, "
                          f"dots or full")
     # the layer draws no random numbers: no RNG state to keep
     extra = {"context_fn": _DOTS} if cfg.remat == "dots" else {}
-    return checkpoint(_layer_apply, p, h, positions, cfg, True,
+    return checkpoint(_layer_apply, p, h, positions, cfg, True, moe_c, mesh,
                       use_reentrant=False, preserve_rng_state=False,
                       **extra)
 
 
 # --------------------------------------------------------------- forward
 def forward(params, tokens, cfg, frontend=None,
-            logits_last_only: bool = False, train: bool = False):
+            logits_last_only: bool = False, train: bool = False,
+            constrain=None, moe_c=None, mesh=None):
     """Train/prefill forward.  tokens: (B, T) int; ``frontend``: optional
     (B, F, D) modality embeddings put in front of the tokens'.
     ``logits_last_only``: the projection runs on the last position only.
     ``train``: the training forward (blocked attention under autograd,
-    ``cfg.remat``); otherwise attention is K4.  Returns (logits (B, F +
-    T, V_padded), aux_loss: the MoE layers' summed, float32)."""
-    h = embed_tokens(params.embeddings, tokens)
+    ``cfg.remat``); otherwise attention is K4.  ``constrain``, ``moe_c``
+    and ``mesh``: the sharding hooks (module docstring).  Returns (logits
+    (B, F + T, V_padded), aux_loss: the MoE layers' summed, float32)."""
+    constrain = constrain or (lambda x: x)
+    if mesh is None:
+        h = embed_tokens(params.embeddings, tokens)
+        emb = params.embeddings
+    else:
+        # the vocab-sharded table's row gather (a masked partial sum)
+        emb = {k: shd.gathered(t, mesh) if k != "embed" else t
+               for k, t in params.embeddings.items()}
+        h = _embed_sharded(tokens, emb["embed"], mesh)
     if frontend is not None:
         h = torch.cat([frontend.to(h.dtype), h], dim=1)
+    h = constrain(h)
     b, t, _ = h.shape
     positions = _positions(b, t, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for p in params.layers:
-        h, a = (_train_layer(p, h, positions, cfg) if train
-                else _layer_apply(p, h, positions, cfg))
+        h, a = (_train_layer(p, h, positions, cfg, moe_c, mesh) if train
+                else _layer_apply(p, h, positions, cfg, moe_c=moe_c,
+                                  mesh=mesh))
+        h = constrain(h)
         if a is not None:
             aux = aux + a
     if logits_last_only:
         h = h[:, -1:]
-    logits = lm_logits(params.embeddings, h, cfg.vocab_size)
+    logits = lm_logits(emb, h, cfg.vocab_size)
     return logits, aux
 
 
@@ -265,29 +416,165 @@ def init_caches(batch: int, cfg, max_len: int, device=None):
     return caches
 
 
-def decode_step(params, token, caches, step: int, cfg):
-    """One decode step.  token: (B, 1) int; ``step``: host int, the
-    tokens already in the caches (updated in place).  Returns (logits
-    (B, 1, V), caches)."""
-    h = embed_tokens(params.embeddings, token)
+def _rows_cache(c, mesh, rows):
+    """A layer's small decode state (Mamba, RWKV, channel mix) in the row
+    layout ``rows`` of the step: batch over the batch axes, the rest
+    whole."""
+    return {k: t.redistribute(mesh, rows) for k, t in c.items()}
+
+
+def _write_back(c, new):
+    """Copy a row-layout state back into the cache's own placements
+    (a local slice: no communication)."""
+    for k, t in c.items():
+        t.copy_(new[k].redistribute(t.device_mesh, t.placements))
+
+
+def _decode_attention_sharded(params, x, cache, step: int, cfg, mesh):
+    """One-token attention against a cache sharded by
+    ``sharding.cache_specs``: KV heads over ``model`` when they divide
+    it, else the sequence over ``model`` (and over ``data`` too for a
+    batch of one) — flash-decode.  Each rank writes the new key and
+    value into its own cache slice if the slot is there, scores its
+    slice, and the softmax's max and sums are all-reduced over the mesh
+    dims that shard the sequence."""
+    from torch.distributed._functional_collectives import all_reduce
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from torch.distributed.tensor.experimental import local_map
+
+    b = x.shape[0]
+    positions = torch.full((b, 1), step, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(params, x, positions, cfg)
+    ck, cv = cache["k"], cache["v"]
+    s_cache = ck.shape[1]
+    slot = step % s_cache if cfg.sliding_window else step
+    g = q.shape[2] // cfg.n_kv_heads
+    hd = cfg.head_dim_
+    pl = ck.placements
+    seq_dims = [i for i, p_ in enumerate(pl) if p_.is_shard(1)]
+    head_dims = [i for i, p_ in enumerate(pl) if p_.is_shard(2)]
+    _, (_, s0, kv0, _) = compute_local_shape_and_global_offset(
+        ck.shape, mesh, pl)
+    rows = tuple(p_ if p_.is_shard(0) else Replicate() for p_ in pl)
+    out_pl = tuple(Replicate() if i not in head_dims else p_
+                   for i, p_ in enumerate(pl))
+    out_pl = tuple(rows[i] if rows[i].is_shard(0) else p_
+                   for i, p_ in enumerate(out_pl))
+
+    def local(ql, kl, vl, ckl, cvl):
+        s_l, kv_l = ckl.shape[1], ckl.shape[2]
+        if s0 <= slot < s0 + s_l:
+            ckl[:, slot - s0] = kl[:, 0, kv0:kv0 + kv_l]
+            cvl[:, slot - s0] = vl[:, 0, kv0:kv0 + kv_l]
+        qg = ql[:, :, kv0 * g:(kv0 + kv_l) * g].reshape(
+            ql.shape[0], 1, kv_l, g, hd).permute(0, 2, 3, 1, 4)
+        sc = torch.einsum("bkgqh,bskh->bkgqs", qg, ckl).to(torch.float32)
+        sc = sc * hd ** -0.5
+        idx = s0 + torch.arange(s_l, device=ql.device)
+        valid = idx <= slot
+        if cfg.sliding_window and step >= s_cache:
+            valid = torch.ones_like(valid)
+        sc = torch.where(valid, sc, NEG_INF)
+        m = sc.amax(dim=-1, keepdim=True)
+        for i in seq_dims:
+            m = all_reduce(m, "max", (mesh, i))
+        p_ = torch.exp(sc - m)
+        den = p_.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bkgqs,bskh->bkgqh", p_, cvl.to(torch.float32))
+        for i in seq_dims:
+            den = all_reduce(den, "sum", (mesh, i))
+            o = all_reduce(o, "sum", (mesh, i))
+        o = (o / den).to(cvl.dtype)
+        return o.permute(0, 3, 1, 2, 4).reshape(ql.shape[0], 1, kv_l * g, hd)
+
+    o = local_map(local, out_placements=list(out_pl),
+                  in_placements=(rows, rows, rows, pl, pl), device_mesh=mesh,
+                  redistribute_inputs=True)(q, k, v, ck, cv)
+    return torch.einsum("bthk,hkd->btd", o, params["wo"])
+
+
+def _decode_recurrent(mixer, params, x, c, cfg, mesh):
+    """A Mamba or RWKV time-mix layer's one-token step; its state in
+    ``c`` is updated in place.  On a mesh the state (small, per row) is
+    taken in the row layout, the step runs per batch shard on whole
+    weights, and the new state is written back into the cache's own
+    slices."""
+    fn, key = ((decode_mamba_block, "mamba") if mixer == "mamba"
+               else (decode_rwkv_time_mix, "rwkv"))
+    if mesh is None:
+        return fn(params, x, c[key], cfg)[0]
+    rows = shd.rows_of(mesh, x)
+    state = _rows_cache(c[key], mesh, rows)
+    names, wnames = list(state), list(params)
+
+    def local(xl, *ts):
+        st = dict(zip(names, ts[:len(names)]))
+        o, st = fn(dict(zip(wnames, ts[len(names):])), xl, st, cfg)
+        return (o,) + tuple(st[n] for n in names)
+    res = shd.local_rows(local, mesh, rows,
+                         (x,) + tuple(state[n] for n in names),
+                         tuple(_whole(params[n], mesh) for n in wnames),
+                         n_out=1 + len(names))
+    _write_back(c[key], dict(zip(names, res[1:])))
+    return res[0]
+
+
+def _decode_channel_mix(params, x, c, mesh):
+    """The channel mix's one-token step; its shift state in ``c``
+    updated in place (on a mesh through the row layout, as
+    :func:`_decode_recurrent`)."""
+    if mesh is None:
+        return decode_rwkv_channel_mix(params, x, c)[0]
+    state = _rows_cache(c, mesh, shd.rows_of(mesh, x))
+    out, last = rwkv_channel_mix(params, x, shift_state=state["x"])
+    _write_back(c, {"x": last})
+    return out
+
+
+def decode_step(params, token, caches, step: int, cfg, constrain=None,
+                moe_c=None, mesh=None):
+    """One decode step.  token: (B, 1) int; ``step``: host int, the tokens
+    already in the caches (updated in place).  Returns (logits (B, 1, V),
+    caches).  On a mesh the parameters, token and caches are DTensors
+    (``sharding.cache_specs``) and the hooks are :func:`forward`'s;
+    attention is :func:`_decode_attention_sharded` (flash-decode over the
+    cache's shards), the rest the same code."""
+    constrain = constrain or (lambda x: x)
+    settle = _settle if mesh is not None else (lambda t, m: t)
+    if mesh is None:
+        emb = params.embeddings
+        h = embed_tokens(emb, token)
+    else:
+        emb = {k: shd.gathered(t, mesh) if k != "embed" else t
+               for k, t in params.embeddings.items()}
+        h = _embed_sharded(token, emb["embed"], mesh)
+    h = constrain(h)
     for p, c in zip(params.layers, caches):
+        if mesh is not None:
+            p = _Compute(p, mesh)
         mixer, ffn = p.kind
         x = rms_norm(h, p.norm1)
-        if mixer == "attn":
-            out, _ = decode_attention_block(p.mixer, x, c["attn"], step, cfg)
-        elif mixer == "mamba":
-            out, _ = decode_mamba_block(p.mixer, x, c["mamba"], cfg)
+        if mixer != "attn":
+            out = _decode_recurrent(mixer, p.mixer, x, c, cfg, mesh)
+        elif mesh is None:
+            out = decode_attention_block(p.mixer, x, c["attn"], step, cfg)[0]
         else:
-            out, _ = decode_rwkv_time_mix(p.mixer, x, c["rwkv"], cfg)
-        h = h + out
+            out = _decode_attention_sharded(p.mixer, x, c["attn"], step, cfg,
+                                            mesh)
+        h = constrain(h + settle(out, mesh))
         x = rms_norm(h, p.norm2)
         if ffn == "mlp":
-            h = h + mlp(p.ffn, x, cfg.mlp_type)
+            out = mlp(p.ffn, x, cfg.mlp_type)
         elif ffn == "moe":
-            h = h + moe_ffn(p.ffn, x, cfg)[0]
+            ep_c, bt_c = moe_c if moe_c else (None, None)
+            out = moe_ffn(p.ffn, x, cfg, ep_constrain=ep_c,
+                          batch_constrain=bt_c, mesh=mesh)[0]
         else:
-            h = h + decode_rwkv_channel_mix(p.ffn, x, c["cmix"])[0]
-    logits = lm_logits(params.embeddings, h, cfg.vocab_size)
+            out = _decode_channel_mix(p.ffn, x, c["cmix"], mesh)
+        h = constrain(h + settle(out, mesh))
+    logits = lm_logits(emb, h, cfg.vocab_size)
     return logits, caches
 
 

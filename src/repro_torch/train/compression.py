@@ -7,9 +7,11 @@ leaf to int8 with a per-leaf scale and *error feedback* (the quantization
 residual is added to the next step's gradient — provably preserves SGD
 convergence, Karimireddy et al. 2019).
 
-Wire format per leaf: int8 tensor + f32 scale.  The exchange itself
-(:func:`cross_pod_mean`, an ``all_gather`` over a pod axis of a device
-mesh) needs more than one device and is not ported.
+Wire format per leaf: int8 tensor + f32 scale.  The exchange
+(:func:`cross_pod_mean`) is an ``all_gather_into_tensor`` of the int8
+payload over the ``pod`` dim of a ``DeviceMesh`` (true int8 on the wire)
+followed by a local dequantized mean — for small pod counts this moves
+(P−1)/P · ¼ the bytes of an f32 ring all-reduce.
 """
 
 from __future__ import annotations
@@ -32,13 +34,53 @@ def dequantize(q, scale):
     return q.to(torch.float32) * scale
 
 
-def cross_pod_mean(grads, err_state, axis_name: str = "pod"):
-    """The compressed mean over a pod axis: an ``all_gather`` of the
-    int8 payloads across pods.  One card has no pod axis."""
-    raise NotImplementedError(
-        "cross_pod_mean: the all_gather over a pod axis needs a device "
-        "mesh of several pods; it waits with the XLA-bound part of ROADMAP "
-        "queue 1 item 7")
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _unflatten(tree, it):
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
+def _all_gather(x, group, size: int):
+    """(P, *x.shape): every pod's ``x``, in pod order."""
+    import torch.distributed as dist
+    out = torch.empty((size * x.numel(),), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=group)
+    return out.reshape((size,) + tuple(x.shape))
+
+
+def cross_pod_mean(grads, err_state, mesh, axis_name: str = "pod"):
+    """Compressed mean over the ``axis_name`` dim of ``mesh`` (the JAX
+    package's, inside ``shard_map`` over ``pod``).
+
+    grads/err_state: this rank's pod's gradients and error buffers, a
+    tensor or a dict of them (nested dicts allowed).  Each leaf is
+    quantized with error feedback, its int8 payload and float32 scale
+    are all-gathered over the pod group, and the dequantized payloads
+    are averaged in the reference's order.  Returns (mean grads in each
+    gradient's type, new error state)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis_name not in names:
+        raise ValueError(f"cross_pod_mean: mesh dims {names} have no "
+                         f"{axis_name!r}")
+    group = mesh.get_group(axis_name)
+    size = mesh.size(names.index(axis_name))
+
+    def leaf(g, err):
+        q, scale, new_err = quantize(g, err)
+        qs = _all_gather(q, group, size)                 # (P, ...) int8
+        ss = _all_gather(scale.reshape(1), group, size)  # (P, 1) f32
+        deq = qs.to(torch.float32) * ss.reshape((-1,) + (1,) * (qs.ndim - 1))
+        return deq.mean(0).to(g.dtype), new_err
+
+    out = [leaf(g, e) for g, e in zip(_leaves(grads), _leaves(err_state))]
+    return (_unflatten(grads, iter(o[0] for o in out)),
+            _unflatten(grads, iter(o[1] for o in out)))
 
 
 def init_error_state(grads):

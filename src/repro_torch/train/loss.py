@@ -20,10 +20,16 @@ def cross_entropy(logits, labels):
     lse = torch.logsumexp(lf, dim=-1)
     valid = labels != IGNORE
     safe = torch.where(valid, labels, 0)
-    # torch.gather takes an int64 index
-    picked = torch.gather(lf, -1, safe.to(torch.int64)[..., None])[..., 0]
+    if hasattr(lf, "placements"):
+        # vocab sharded (a DTensor): pick by a mask and a sum, which
+        # shards over the vocab (one nonzero term: exact)
+        vocab = torch.arange(lf.shape[-1], device=lf.device)
+        picked = torch.where(vocab == safe[..., None], lf, 0.0).sum(-1)
+    else:
+        # torch.gather takes an int64 index
+        picked = torch.gather(lf, -1, safe.to(torch.int64)[..., None])[..., 0]
     nll = (lse - picked) * valid
-    count = valid.sum().clamp(min=1)
+    count = valid.sum().clamp(min=1).to(torch.int32)    # jnp's int32
     return nll.sum() / count, count
 
 

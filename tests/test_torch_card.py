@@ -1452,3 +1452,40 @@ def test_train_step_kinds_on_card_equal_cpu(cuda, case):
     beyond = {k: (e, own[k]) for k, e in err.items()
               if e > max(TRAIN_TOL, 2.5 * own[k])}
     assert not beyond, beyond
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "starcoder2-7b"])
+def test_sharded_k4_prefill_on_a_one_rank_mesh_is_bit_equal(cuda, arch):
+    """The prefill through the sharded K4 route (``build_prefill_step``
+    with a (1, 1) mesh over a world-1 NCCL group: each rank's heads, their
+    KV expanded) equals the unsharded K4 prefill bit for bit (bf16, smoke
+    width: 4 heads over 2 KV heads; starcoder2's window too), K4 launched
+    once a layer on each."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import make_local_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import steps as tsteps
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+    started = not dist.is_initialized()
+    mesh = make_local_mesh("cuda")
+    try:
+        toks = torch.randint(0, cfg.vocab_size, (2, 256),
+                             generator=torch.Generator().manual_seed(3))
+        batch = {"tokens": toks.to(cuda)}
+        f0, _, _ = tsteps.build_prefill_step(cfg, None)
+        f1, _, _ = tsteps.build_prefill_step(cfg, mesh, global_batch=2)
+        before = FLASH_KERNEL.launches
+        want = f0(init_params(0, cfg, device=cuda), batch)
+        mid = FLASH_KERNEL.launches
+        got = f1(init_params(0, cfg, device=cuda), batch)
+        after = FLASH_KERNEL.launches
+    finally:
+        if started:
+            dist.destroy_process_group()
+    assert mid - before == after - mid == cfg.n_layers
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -21,7 +21,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import reference_tree
 from repro_torch.launch.train import MESH_SHAPE
 from repro_torch.train.steps import init_train_state
-from test_torch_train_kinds import _jax_tree
+from _train_kinds import _jax_tree
 
 # the train states of the layout and round-trip cases: a dense smoke
 # config and two with the new layer kinds (jamba: Mamba, attention, MoE
@@ -99,11 +99,14 @@ def test_restore_rejects_structure_change(tmp_path):
 
 
 def test_restore_onto_a_mesh_is_not_ported(tmp_path):
+    """The elastic restore is ported (``tests/test_torch_shard_gloo.py``
+    restores onto two mesh sizes); a mesh without shardings, or
+    shardings without a mesh, is refused before anything is read."""
     mgr = CheckpointManager(tmp_path)
     mgr.save(1, _state())
-    with pytest.raises(NotImplementedError, match="XLA-bound"):
-        mgr.restore(1, _zeros_like(_state()), mesh=object(),
-                    shardings=object())
+    for kw in ({"mesh": object()}, {"shardings": object()}):
+        with pytest.raises(ValueError, match="both mesh and shardings"):
+            mgr.restore(1, _zeros_like(_state()), **kw)
 
 
 def test_bf16_roundtrip(tmp_path):

@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.runtime.fault_tolerance",
             "repro_torch.monitor.loop", "repro_torch.cli.remap_watch",
             "repro_torch.launch.mesh",
-            "repro_torch.launch.specs",
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+            "repro_torch.models.sharding",
             "repro_torch.train.loss", "repro_torch.train.optimizer",
             "repro_torch.train.compression", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.checkpoint",
@@ -59,3 +60,24 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.staticcheck.runtime_audit",
             "repro_torch.staticcheck.__main__"} <= set(report["names"])
     assert report["leaked"] == [], f"repro_torch pulled in {report}"
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    """``chip_smoke.py`` and the modules its phases import (the dry-run
+    and sharding among them) leave jax and the JAX package out."""
+    probe = """
+import importlib, json, sys
+sys.path.insert(0, %r)
+import chip_smoke
+for name in ("repro_torch.launch.dryrun", "repro_torch.models.sharding",
+             "repro_torch.launch.train", "repro_torch.train.steps"):
+    importlib.import_module(name)
+print(json.dumps(sorted(k for k in sys.modules
+                        if k in ("jax", "repro", "ml_dtypes")
+                        or k.startswith(("jax.", "repro.", "ml_dtypes.")))))
+""" % str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -295,8 +295,13 @@ def test_quantize_with_error_feedback_matches_jax(dtype):
 
 
 def test_cross_pod_mean_is_not_ported():
-    with pytest.raises(NotImplementedError, match="XLA-bound"):
-        tcomp.cross_pod_mean({"g": torch.zeros(3)}, {"g": torch.zeros(3)})
+    """``cross_pod_mean`` is ported (``tests/test_torch_shard_gloo.py``
+    holds it to the reference over a pod mesh dim); a mesh without a
+    ``pod`` dim is refused."""
+    from repro_torch.models.sharding import MeshShape
+    with pytest.raises(ValueError, match="pod"):
+        tcomp.cross_pod_mean({"g": torch.zeros(3)}, {"g": torch.zeros(3)},
+                             MeshShape((1, 1), ("data", "model")))
 
 
 # ------------------------------------------------------ blocked attention
@@ -629,7 +634,8 @@ def test_prefill_step_matches_jax():
     port = convert.lm_params(jax.tree.map(np.asarray, params), tcfg, "cpu")
     toks = _batch(jcfg.vocab_size, 2, 96, seed=6)["tokens"]
     want = jsteps.prefill_step(params, {"tokens": jnp.asarray(toks)}, jcfg)
-    fn = tsteps.build_prefill_step(tcfg)
+    fn, pspec, bspec = tsteps.build_prefill_step(tcfg, None)
+    assert pspec is None and bspec is None
     got = fn(port, {"tokens": torch.from_numpy(toks)})
     assert got.shape == want.shape == (2, 1, jcfg.padded_vocab)
     v = jcfg.vocab_size
@@ -642,12 +648,13 @@ def test_default_microbatches_matches_one_data_shard():
     for arch in ARCHS + ["granite-3-8b"]:
         jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
         for gb in (1, 2, 3, 4, 6, 8, 16, 24, 64):
-            assert tsteps.default_microbatches(tcfg, gb) == \
+            assert tsteps.default_microbatches(tcfg, None, gb) == \
                 jsteps.default_microbatches(jcfg, mesh, gb), (arch, gb)
     cfg = dataclasses.replace(get_smoke_config("granite-3-2b"),
                               train_microbatches=0)
-    assert tsteps.default_microbatches(cfg, 4) == 4
-    step = tsteps.build_train_step(cfg, global_batch=4)
+    assert tsteps.default_microbatches(cfg, None, 4) == 4
+    step, sspec, bspec = tsteps.build_train_step(cfg, None, global_batch=4)
+    assert sspec is None and bspec is None
     assert step.keywords["microbatches"] == 4
     assert step.keywords["opt"] == OptConfig()
 
