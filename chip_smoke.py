@@ -5,7 +5,8 @@
 Run from the root of a checkout on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch.  It imports nothing of JAX and nothing of the
 JAX package ``repro``; it drives ``src/repro_torch`` in phases and prints
-one JSON line after each, failing loudly on the first fault:
+one JSON line after each (its ``t_s``: seconds since the start), failing
+loudly on the first fault:
 
 1. device   — a CUDA card must be present; prints its name and power
               limit (``nvidia-smi``).
@@ -381,6 +382,7 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -479,6 +481,10 @@ BENCH_SERVE = {"repeats": 42, "speedup": 4.935614573322663,
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's carries ``t_s``, the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -3993,8 +3999,8 @@ def hybrid_split(cfg, params, prompts, max_len):
         kv = torch.randn((b, t, cfg.n_kv_heads, hd), generator=gen,
                          device=DEVICE).to(dt)
         parts = {
-            "mamba_scan": (lambda: mamba._chunked_ssm(mam.mixer, xc, cfg,
-                                                      h0), n_mamba),
+            "mamba_scan": (lambda: mamba._chunked_ssm(
+                mam.mixer, xc, xc @ mam.mixer["w_x"], cfg, h0), n_mamba),
             "moe_route": (lambda: moe._route(x, exp.ffn["router"], e, k,
                                              cap, ev // e), n_moe),
             "moe_dispatch": (lambda: moe._dispatch(x, se, st, pos_c, ev,
@@ -4284,7 +4290,8 @@ def train_kinds_split(cfg, state, batch, opt, microbatches):
                          dtype=torch.float32, device=DEVICE)
         used = [mam.mixer[n] for n in ("w_x", "w_dt", "b_dt", "a_log")]
         parts["mamba_scan"] = (_fwd_bwd(
-            lambda: mamba._chunked_ssm(mam.mixer, xc, cfg, h0)[:1],
+            lambda: mamba._chunked_ssm(mam.mixer, xc, xc @ mam.mixer["w_x"],
+                                       cfg, h0)[:1],
             [xc] + used), count(lambda k: k[0] == "mamba"))
     exp = first(lambda k: k[1] == "moe")
     if exp is not None:

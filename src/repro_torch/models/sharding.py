@@ -29,13 +29,19 @@ for ``ep_c``), which the tests hold against the reference's.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
-__all__ = ["MeshShape", "activation_constrainer", "batch_axes",
-           "cache_specs", "gathered", "is_dtensor", "layer_specs",
-           "local_rows", "mesh_size", "moe_constrainers", "n_batch",
-           "named", "param_specs", "placements", "rows_of", "shard_input",
-           "train_batch_specs"]
+import numpy as np
+import torch
+
+__all__ = ["BlockPlan", "MeshShape", "activation_constrainer", "batch_axes",
+           "block_plan", "cache_specs", "gathered", "is_dtensor",
+           "layer_specs", "local_blocks", "local_rows", "mesh_size",
+           "model_blocks", "moe_constrainers", "n_batch", "named",
+           "param_specs", "placements", "rows_of", "shard_input",
+           "train_batch_specs", "weight_grad", "with_model"]
 
 
 @dataclass(frozen=True)
@@ -330,10 +336,197 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+class BlockPlan(NamedTuple):
+    """How one ``model`` rank assembles its rows of a dim stored over
+    (``data``, ``model``) (:func:`block_plan`).  Row orders are lists of
+    runs ``(start, stop)`` taken from a buffer in turn (:func:`_take`).
+
+    Forward: the rank's stored block all-gathered over ``data`` (its
+    ``data`` ranks' blocks in rank order), ``send`` taken from it,
+    exchanged over ``model`` (``send_counts`` rows to each model rank,
+    ``recv_counts`` from each), ``assemble`` taken from what came.
+    Backward: ``back_send`` taken from the rows' gradient, exchanged with
+    the counts swapped, ``back_place`` taken from what came: the gathered
+    rows' gradient, which a reduce-scatter over ``data`` takes home."""
+    send: tuple
+    send_counts: tuple
+    recv_counts: tuple
+    assemble: tuple
+    back_send: tuple
+    back_place: tuple
+
+
+def _runs(idx) -> tuple:
+    """An index array as runs of consecutive indices ``(start, stop)``."""
+    idx = np.asarray(idx, dtype=np.int64)
+    cut = np.flatnonzero(np.diff(idx) != 1) + 1
+    starts = np.concatenate([[0], cut])
+    stops = np.concatenate([cut, [idx.size]])
+    return tuple((int(idx[a]), int(idx[b - 1]) + 1)
+                 for a, b in zip(starts, stops))
+
+
+def _inverse(perm):
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    return inv
+
+
+def _model_rows(n: int, model: int, parts: int, j: int):
+    """The logical rows that model rank ``j`` computes with: part p's
+    model block j for each of ``parts`` equal parts of the dim, in part
+    order (``parts`` 1: rows [j·n/model, (j+1)·n/model))."""
+    span, blk = n // parts, n // (parts * model)
+    return np.concatenate([np.arange(p * span + j * blk,
+                                     p * span + (j + 1) * blk)
+                           for p in range(parts)])
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(n: int, data: int, model: int, j: int,
+               parts: int = 1) -> BlockPlan:
+    """Model rank ``j``'s :class:`BlockPlan` for a dim of ``n`` rows
+    stored over (``data``, ``model``): rank (i, j) holds block i·model + j
+    of n/(data·model) rows, the reference's major-to-minor order.  The
+    target of model rank j is :func:`_model_rows` (``parts`` = 2: the x
+    and z halves of Mamba's ``w_in``, each rank's block of both).  Every
+    rank receives exactly its n/model target rows; ``data`` 1 is a dim
+    over ``model`` alone.  Pure index arithmetic, the same on every data
+    rank."""
+    if n % (data * model) or n % (parts * model):
+        raise ValueError(f"block_plan: {n} rows do not split over data "
+                         f"{data} x model {model} in {parts} parts")
+    s = n // (data * model)
+    rows = np.arange(n)
+    owner = (rows // s) % model          # the model rank holding a row
+    held = np.flatnonzero(owner == j)    # rank j's rows once gathered
+    pos = np.full(n, -1)
+    pos[held] = np.arange(held.size)
+    send, send_counts = [], []
+    for m in range(model):
+        at = pos[_model_rows(n, model, parts, m)]
+        at = at[at >= 0]
+        send.append(at)
+        send_counts.append(int(at.size))
+    send = np.concatenate(send)
+    want = _model_rows(n, model, parts, j)
+    order = np.argsort(owner[want], kind="stable")   # arrival order
+    recv_counts = np.bincount(owner[want], minlength=model)
+    return BlockPlan(send=_runs(send),
+                     send_counts=tuple(send_counts),
+                     recv_counts=tuple(int(c) for c in recv_counts),
+                     assemble=_runs(_inverse(order)),
+                     back_send=_runs(order), back_place=_runs(_inverse(send)))
+
+
+def _take(buf, runs):
+    """The rows of ``buf`` (dim 0) in the order of ``runs``: ``buf``
+    itself when that is all of it in order, else one copy."""
+    if len(runs) == 1 and runs[0] == (0, buf.shape[0]):
+        return buf
+    return torch.cat([buf[a:b] for a, b in runs])
+
+
+def _collective(name, x, *args, mesh, dim):
+    """``torch.ops._c10d_functional.<name>(x, *args)`` over mesh dim
+    ``dim``'s group, waited for (what DTensor issues, so
+    ``CommDebugMode`` counts it)."""
+    group = mesh.get_group(dim).group_name
+    op = getattr(torch.ops._c10d_functional, name)
+    return torch.ops._c10d_functional.wait_tensor(
+        op(x.contiguous(), *args, group))
+
+
+def _exchange(x, send_counts, recv_counts, mesh, dim):
+    """An all-to-all of ``x``'s rows over mesh dim ``dim`` (``send_counts``
+    rows to each rank in turn, ``recv_counts`` from each)."""
+    return _collective("all_to_all_single", x, list(recv_counts),
+                       list(send_counts), mesh=mesh, dim=dim)
+
+
+class _ModelBlocks(torch.autograd.Function):
+    """:func:`model_blocks`: all-gather over ``data``, one exchange
+    over ``model``; backward the exchange reversed, then a
+    reduce-scatter over ``data`` back to the stored layout."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, parts):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        names = _names(mesh)
+        di, mi = names.index("data"), names.index("model")
+        pl = tuple(t.placements)
+        data = mesh.size(di) if pl[di] == Shard(dim) else 1
+        j = mesh.get_local_rank("model")
+        plan = block_plan(t.shape[dim], data, mesh.size(mi), j, parts)
+        x = t.to_local().movedim(dim, 0)
+        if data > 1:
+            x = _collective("all_gather_into_tensor", x, data, mesh=mesh,
+                            dim=di)
+        # one buffer of N/|model| rows besides the result at a time
+        x = _take(x, plan.send)
+        x = _exchange(x, plan.send_counts, plan.recv_counts, mesh, mi)
+        x = _take(x, plan.assemble)
+        ctx.args = (mesh, dim, plan, pl, data, di, mi)
+        out = tuple(Replicate() if i == di else p
+                    for i, p in enumerate(pl))
+        return DTensor.from_local(x.movedim(0, dim), mesh, out,
+                                  run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        mesh, dim, plan, pl, data, di, mi = ctx.args
+        # the gradient in the compute layout: partial over the dims
+        # that shard the batch, the model block over "model"
+        want = tuple(Shard(dim) if i == mi else
+                     (p if p.is_partial() else Replicate())
+                     for i, p in enumerate(g.placements))
+        if tuple(g.placements) != want:
+            g = g.redistribute(mesh, want)
+        x = g.to_local().movedim(dim, 0)
+        x = _take(x, plan.back_send)
+        x = _exchange(x, plan.recv_counts, plan.send_counts, mesh, mi)
+        x = _take(x, plan.back_place)
+        got = list(want)
+        if data > 1:
+            if want[di].is_partial():
+                x = _collective("reduce_scatter_tensor", x, "sum", data,
+                                mesh=mesh, dim=di)
+            else:
+                s = x.shape[0] // data
+                i = mesh.get_local_rank("data")
+                x = x[i * s:(i + 1) * s]
+            got[di] = Shard(dim)
+        grad = DTensor.from_local(x.movedim(0, dim), mesh, tuple(got),
+                                  run_check=False)
+        if tuple(got) != pl:        # e.g. partial over "pod"
+            grad = grad.redistribute(mesh, pl)
+        return grad, None, None, None
+
+
+def model_blocks(t, mesh, dim: int, parts: int = 1):
+    """Leaf ``t``'s rows of tensor dim ``dim`` that this ``model`` rank
+    computes with, replicated over ``data``: a DTensor ``Shard(dim)`` over
+    ``model``, ``Replicate`` over the rest.  ``t``'s dim is stored over
+    ``model`` and, optionally, ``data`` (rank (i, j) holding block
+    i·|model| + j).  Model rank j gets rows [j·N/|model|, (j+1)·N/|model|)
+    — with ``parts`` = 2 part p's block j of each half in turn, so that
+    the result's local tensor is Mamba's [x_j | z_j] (its global order is
+    then the halves' blocks interleaved: only a ``local_map`` region
+    reads it).  An all-gather over ``data`` of the stored block and one
+    all-to-all over ``model`` (:func:`block_plan`): the transient is the
+    model block and one send buffer of that size, never the whole
+    tensor.  The backward reverses the exchange and reduce-scatters the
+    gradient over ``data`` to the stored layout."""
+    return _ModelBlocks.apply(t, mesh, dim, parts)
+
+
 def gathered(t, mesh, keep_data: bool = False):
     """A stored parameter in its compute layout: its ``data`` (FSDP)
     shard all-gathered, its ``model`` (TP) shard kept — the ZeRO-3
-    gather at use.  ``keep_data`` keeps the data shard too (the MoE
+    gather at use.  A dim stored over both (``data``, ``model``) comes
+    back as this rank's contiguous model block (:func:`model_blocks`),
+    never whole.  ``keep_data`` keeps the data shard too (the MoE
     experts' E_v@data: dispatch travels, weights don't).  A plain tensor
     passes through; the backward reduce-scatters the gradient back to
     the stored layout."""
@@ -341,33 +534,61 @@ def gathered(t, mesh, keep_data: bool = False):
         return t
     from torch.distributed.tensor import Replicate
     names = _names(mesh)
+    if "data" in names and "model" in names:
+        d, m = (t.placements[names.index(a)] for a in ("data", "model"))
+        if d.is_shard() and d == m:
+            return model_blocks(t, mesh, d.dim)
     pl = tuple(Replicate() if names[i] == "data" else p
                for i, p in enumerate(t.placements))
     return t if pl == tuple(t.placements) else t.redistribute(mesh, pl)
 
 
+def with_model(mesh, pl, p) -> tuple:
+    """Placements ``pl`` with the ``model`` mesh dim's replaced by
+    ``p``."""
+    mi = _names(mesh).index("model")
+    return tuple(p if i == mi else q for i, q in enumerate(pl))
+
+
+def weight_grad(rows, pl) -> tuple:
+    """The placements of the gradient of a weight at ``pl`` used by rows
+    at ``rows`` in a ``local_map`` region: each rank's gradient covers its
+    own rows, so it is partial over the mesh dims that shard them."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if r.is_shard() else p for r, p in zip(rows, pl))
+
+
+def local_blocks(fn, mesh, args, in_pl, grad_pl, out_pl):
+    """``fn`` on each rank's local tensors of ``args`` (a ``local_map``),
+    input i at placements ``in_pl[i]`` (redistributed there if it is not)
+    with its gradient at ``grad_pl[i]``; ``out_pl`` holds one placements
+    tuple per output of ``fn`` (one output: ``fn`` returns a tensor)."""
+    from torch.distributed.tensor.experimental import local_map
+    # one output takes a list: local_map reads a tuple as one per output
+    out = list(out_pl[0]) if len(out_pl) == 1 else tuple(out_pl)
+    return local_map(fn, out_placements=out, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def local_rows(fn, mesh, rows, acts, weights=(), n_out: int = 1):
-    """``fn(*acts, *weights)`` on each rank's local tensors (a
-    ``local_map``): the activations in ``rows`` (the batch rows sharded
-    over the batch axes, replicated over ``model``), the weights
+    """``fn(*acts, *weights)`` on each rank's local tensors
+    (:func:`local_blocks`): the activations in ``rows`` (the batch rows
+    sharded over the batch axes, replicated over ``model``), the weights
     replicated.  Each rank's weight gradient covers its own rows, so it
     comes back partial over the mesh dims that shard the rows.  Every
     output (``n_out`` of them) is row-sharded like the activations.
     With no mesh (plain tensors) ``fn`` runs as it is."""
     if mesh is None:
         return fn(*acts, *weights)
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import Replicate
+    rows = tuple(rows)
     rep = tuple(Replicate() for _ in rows)
-    wgrad = tuple(Partial() if isinstance(p, Shard) else Replicate()
-                  for p in rows)
-    in_pl = (tuple(rows),) * len(acts) + (rep,) * len(weights)
-    grad_pl = (tuple(rows),) * len(acts) + (wgrad,) * len(weights)
-    # one output takes a list: local_map reads a tuple as one per output
-    out_pl = list(rows) if n_out == 1 else (tuple(rows),) * n_out
-    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
-                     in_grad_placements=grad_pl, device_mesh=mesh,
-                     redistribute_inputs=True)(*acts, *weights)
+    return local_blocks(
+        fn, mesh, tuple(acts) + tuple(weights),
+        (rows,) * len(acts) + (rep,) * len(weights),
+        (rows,) * len(acts) + (weight_grad(rows, rep),) * len(weights),
+        (rows,) * n_out)
 
 
 def rows_of(mesh, x) -> tuple:

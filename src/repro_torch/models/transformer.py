@@ -42,14 +42,17 @@ the MoE experts stay E_v@data), ``constrain`` pins the (B, T, D)
 activations to batch-over-(pod, data) after the embedding and after
 each layer (the reference pins them at each period's ends; the extra
 pins are no-ops), and ``moe_c`` = (ep_c, bt_c) is handed to the MoE
-FFNs.  Attention goes through ``attention.flash_attention_sharded``; the
-Mamba and RWKV time-mix mixers, whose scan, ``torch.cat`` steps and
-cumulative sums DTensor has no strategy for, run per batch shard in a
-``local_map`` with their weights gathered whole (``sharding.local_rows``:
-the reference's RWKV projections are FSDP-only, so that is its layout;
-its Mamba keeps d_inner over ``model``, which the port does not yet);
-the MLP and channel-mix FFNs, the norms and the LM head run on the
-DTensors.
+FFNs.  A dim stored over (``data``, ``model``) comes to each rank as its
+model block (``sharding.model_blocks``), never whole.  Attention goes
+through ``attention.flash_attention_sharded``; the Mamba and RWKV
+time-mix mixers, whose scan, ``torch.cat`` steps and cumulative sums
+DTensor has no strategy for, run in ``local_map`` regions: the Mamba
+mixer with d_inner over ``model``, as the reference keeps it
+(:func:`_mamba_sharded`: two regions, the partial projection between
+them all-reduced), the RWKV time mix per batch shard with its weights
+gathered whole (``sharding.local_rows``: the reference's RWKV
+projections are FSDP-only, so that is its layout); the MLP and
+channel-mix FFNs, the norms and the LM head run on the DTensors.
 
 Decode caches are a list with one dict per layer, keyed by what the
 layer carries: ``attn`` {k, v}, ``mamba`` {conv, ssm}, ``rwkv`` {x, s}
@@ -74,7 +77,8 @@ from .attention import (NEG_INF, _qkv, attention_block,
 from .layers import (embed_tokens, init_embeddings, init_mlp, lm_logits, mlp,
                      rms_norm)
 from .mamba import (_mamba_prefill, decode_mamba_block, init_mamba,
-                    init_mamba_cache, mamba_block)
+                    init_mamba_cache, mamba_block, mamba_split_in,
+                    mamba_split_out)
 from .moe import init_moe, moe_ffn
 from .rwkv import (decode_rwkv_channel_mix, decode_rwkv_time_mix,
                    init_rwkv_channel_mix, init_rwkv_time_mix,
@@ -197,17 +201,23 @@ def _positions(b: int, t: int, device):
 
 class _Settled(torch.autograd.Function):
     """Redistribute to ``pl`` (partial sums all-reduced); the gradient
-    passes back as it comes, replicated over ``model`` — as the logical
-    gradient of a sum of partials is.  (A plain redistribute would hand
-    back a partial gradient, for which DTensor gathers the whole weight
-    of the projection before it.)"""
+    passes back replicated over ``model`` — as the logical gradient of a
+    sum of partials is: as it comes, or all-reduced where it comes
+    partial (the Mamba projection's, whose users each hold a slice of
+    d_inner; DTensor versions differ on whether a ``local_map`` output
+    placed ``Partial`` all-reduces such a gradient itself).  (A plain
+    redistribute would hand back a partial gradient, for which DTensor
+    gathers the whole weight of the projection before it.)"""
 
     @staticmethod
     def forward(ctx, h, mesh, pl):
+        ctx.mesh, ctx.pl = mesh, pl
         return h.redistribute(mesh, pl)
 
     @staticmethod
     def backward(ctx, g):
+        if any(p.is_partial() for p in g.placements):
+            g = g.redistribute(ctx.mesh, ctx.pl)
         return g, None, None
 
 
@@ -246,13 +256,17 @@ def _embed_sharded(tokens, table, mesh):
 
 class _Compute:
     """A layer's tensors in their compute layout on ``mesh``
-    (``sharding.gathered``); the MoE experts keep their E_v@data."""
+    (``sharding.gathered``); the MoE experts keep their E_v@data, and
+    Mamba's ``w_in`` stays as stored for :func:`_mamba_sharded`, which
+    takes both of its halves' model blocks."""
 
     def __init__(self, p, mesh):
         self.kind = p.kind
         self.norm1 = shd.gathered(p.norm1, mesh)
         self.norm2 = shd.gathered(p.norm2, mesh)
-        self.mixer = {k: shd.gathered(t, mesh) for k, t in p.mixer.items()}
+        self.mixer = {k: t if (p.kind[0], k) == ("mamba", "w_in")
+                      else shd.gathered(t, mesh)
+                      for k, t in p.mixer.items()}
         keep = p.kind[1] == "moe"
         self.ffn = {k: shd.gathered(t, mesh, keep_data=keep and k != "router")
                     for k, t in p.ffn.items()}
@@ -265,16 +279,86 @@ def _whole(t, mesh):
 
 
 def _mixer_local(fn, params, x, cfg, mesh):
-    """``fn(params, x, cfg)`` (a Mamba or RWKV time-mix block's output)
-    per batch shard, its weights gathered whole."""
-    if mesh is None:
-        return fn(params, x, cfg)
+    """``fn(params, x, cfg)`` (the RWKV time-mix block's output) per batch
+    shard, its weights gathered whole (the reference's RWKV projections
+    are FSDP-only)."""
     names = list(params)
 
     def local(xl, *ws):
         return fn(dict(zip(names, ws)), xl, cfg)
     return shd.local_rows(local, mesh, shd.rows_of(mesh, x), (x,),
                           tuple(_whole(params[k], mesh) for k in names))
+
+
+_MAMBA_IN = ("w_in", "conv_w", "conv_b", "w_x")
+_MAMBA_OUT = ("w_dt", "b_dt", "a_log", "d_skip", "w_out")
+
+
+def _mamba_sharded(params, x, cfg, mesh, state=None):
+    """The Mamba mixer on a mesh with d_inner over ``model``, as the
+    reference's specs place it, in two ``local_map`` regions
+    (``sharding.local_blocks``):
+
+      1. ``mamba_split_in`` on x in the row layout, this rank's columns of
+         both halves of ``w_in`` (``sharding.model_blocks``, parts 2),
+         ``conv_w``, ``conv_b`` and ``w_x``'s rows at their shards: xc and
+         z at d_inner@``model`` and the projection xc @ w_x partial over
+         ``model``, settled (all-reduced) between the regions;
+      2. ``mamba_split_out``: the scan over this rank's d_inner/|model|
+         channels with ``w_dt``'s model block, ``b_dt``, ``a_log`` and
+         ``d_skip`` at their shards, and y @ w_out partial over
+         ``model`` (the layer settles it).
+
+    With ``state`` (a decode cache {conv, ssm} at d_inner@``model``) one
+    token steps from it and the new states are written into the cache's
+    own slices.  Where d_inner is not split over ``model`` (a model dim
+    of one rank, or one it does not divide) the same regions run on the
+    whole of it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    rows = shd.rows_of(mesh, x)
+    split = any(p.is_shard() for p in params["conv_b"].placements)
+    w = dict(params)
+    w["w_in"] = (shd.model_blocks(params["w_in"], mesh, 1, parts=2) if split
+                 else _whole(params["w_in"], mesh))
+    part = shd.with_model(mesh, rows, Partial() if split else Replicate())
+
+    def cols(d):                    # an activation with d_inner at dim d
+        return shd.with_model(mesh, rows, Shard(d) if split else Replicate())
+
+    def weights(names):
+        ts = tuple(w[k] for k in names)
+        return (ts, tuple(t.placements for t in ts),
+                tuple(shd.weight_grad(rows, t.placements) for t in ts))
+
+    ws, w_pl, w_grad = weights(_MAMBA_IN)
+    st = (state["conv"],) if state else ()
+    st_pl = (cols(2),) * len(st)
+
+    def first(xl, *ts):
+        xc, z, proj, conv = mamba_split_in(dict(zip(_MAMBA_IN, ts)), xl,
+                                           cfg, *ts[len(_MAMBA_IN):])
+        return (xc, z, proj) + ((conv,) if state else ())
+    xc, z, proj, *conv = shd.local_blocks(
+        first, mesh, (x,) + ws + st, (rows,) + w_pl + st_pl,
+        (part,) + w_grad + st_pl, (cols(2), cols(2), part) + st_pl)
+    proj = _settle(proj, mesh)
+
+    ws, w_pl, w_grad = weights(_MAMBA_OUT)
+    st = (state["ssm"],) if state else ()
+    st_pl = (cols(1),) * len(st)
+
+    def second(xcl, zl, pl_, *ts):
+        out, h = mamba_split_out(dict(zip(_MAMBA_OUT, ts)), xcl, zl, pl_,
+                                 cfg, *ts[len(_MAMBA_OUT):])
+        return (out, h) if state else out
+    res = shd.local_blocks(
+        second, mesh, (xc, z, proj) + ws + st,
+        (cols(2), cols(2), rows) + w_pl + st_pl,
+        (cols(2), cols(2), part) + w_grad + st_pl, (part,) + st_pl)
+    if not state:
+        return res
+    _write_back(state, {"conv": conv[0], "ssm": res[1]})
+    return res[0]
 
 
 def _rwkv(params, x, cfg):
@@ -296,8 +380,10 @@ def _layer_apply(p, h, positions, cfg, train: bool = False, moe_c=None,
     if mixer == "attn":
         out = attention_block(p.mixer, x, positions, cfg, train=train,
                               mesh=mesh)
+    elif mesh is None:
+        out = (mamba_block if mixer == "mamba" else _rwkv)(p.mixer, x, cfg)
     elif mixer == "mamba":
-        out = _mixer_local(mamba_block, p.mixer, x, cfg, mesh)
+        out = _mamba_sharded(p.mixer, x, cfg, mesh)
     else:
         out = _mixer_local(_rwkv, p.mixer, x, cfg, mesh)
     h = h + settle(out, mesh)
@@ -417,7 +503,7 @@ def init_caches(batch: int, cfg, max_len: int, device=None):
 
 
 def _rows_cache(c, mesh, rows):
-    """A layer's small decode state (Mamba, RWKV, channel mix) in the row
+    """A layer's small decode state (RWKV, channel mix) in the row
     layout ``rows`` of the step: batch over the batch axes, the rest
     whole."""
     return {k: t.redistribute(mesh, rows) for k, t in c.items()}
@@ -497,27 +583,31 @@ def _decode_attention_sharded(params, x, cache, step: int, cfg, mesh):
 
 def _decode_recurrent(mixer, params, x, c, cfg, mesh):
     """A Mamba or RWKV time-mix layer's one-token step; its state in
-    ``c`` is updated in place.  On a mesh the state (small, per row) is
-    taken in the row layout, the step runs per batch shard on whole
-    weights, and the new state is written back into the cache's own
-    slices."""
-    fn, key = ((decode_mamba_block, "mamba") if mixer == "mamba"
-               else (decode_rwkv_time_mix, "rwkv"))
+    ``c`` is updated in place.  On a mesh the Mamba step keeps d_inner
+    over ``model`` (:func:`_mamba_sharded`: its states stay in their
+    cache slices); the RWKV state (small, per row) is taken in the row
+    layout, the step runs per batch shard on whole weights, and the new
+    state is written back into the cache's own slices."""
+    if mixer == "mamba":
+        if mesh is None:
+            return decode_mamba_block(params, x, c["mamba"], cfg)[0]
+        return _mamba_sharded(params, x, cfg, mesh, state=c["mamba"])
     if mesh is None:
-        return fn(params, x, c[key], cfg)[0]
+        return decode_rwkv_time_mix(params, x, c["rwkv"], cfg)[0]
     rows = shd.rows_of(mesh, x)
-    state = _rows_cache(c[key], mesh, rows)
+    state = _rows_cache(c["rwkv"], mesh, rows)
     names, wnames = list(state), list(params)
 
     def local(xl, *ts):
         st = dict(zip(names, ts[:len(names)]))
-        o, st = fn(dict(zip(wnames, ts[len(names):])), xl, st, cfg)
+        o, st = decode_rwkv_time_mix(dict(zip(wnames, ts[len(names):])), xl,
+                                     st, cfg)
         return (o,) + tuple(st[n] for n in names)
     res = shd.local_rows(local, mesh, rows,
                          (x,) + tuple(state[n] for n in names),
                          tuple(_whole(params[n], mesh) for n in wnames),
                          n_out=1 + len(names))
-    _write_back(c[key], dict(zip(names, res[1:])))
+    _write_back(c["rwkv"], dict(zip(names, res[1:])))
     return res[0]
 
 

@@ -44,25 +44,24 @@ B, T = 8, 64
 TOL = 1e-5
 GRAD_SHAPES = {"a": (6, 5), "b": {"c": (17,), "d": (3, 4, 2)}}
 
-# The parameters that the port gathers whole at use although the
-# reference keeps a dim of them over "model" (ROADMAP queue 1):
-#   item 11 — the Mamba mixer's weights (its d_inner is not split over
-#             "model": the mixer runs per batch shard on whole weights);
-#   item 12 — a dim stored over ("data", "model"): DTensor turns
-#             (Shard, Shard) into (Replicate, Shard) through the whole
-#             tensor.
-KNOWN = ("item 11", "item 12")
+# The parameters that the port may gather whole at use although the
+# reference keeps a dim of them over "model": none.
+KNOWN = ()
 
-# rwkv6-3b's train steps are held per tensor to max(1e-5, KIND_SPREAD ×
-# the unsharded float32 step's own error against the same steps in
-# float64; tests/_train_kinds.py's REF_RATIO), not to a flat 1e-5: a sharded step sums each batch shard's weight gradient across
-# ranks where the unsharded step sums over the whole batch at once, and
-# RWKV's ``u`` gets its gradient through the factored WKV chunk, which
-# is ill-conditioned in float32 (the JAX package's own float32 step puts
-# rwkv's moments up to 5.2e-5 from float64, the error
+# rwkv6-3b's and jamba-v0.1-52b's train steps are held per tensor to
+# max(1e-5, KIND_SPREAD × the unsharded float32 step's own error against
+# the same steps in float64; tests/_train_kinds.py's REF_RATIO), not to a
+# flat 1e-5: a sharded step sums each batch shard's weight gradient
+# across ranks where the unsharded step sums over the whole batch at
+# once.  RWKV's ``u`` gets its gradient through the factored WKV chunk,
+# which is ill-conditioned in float32 (the JAX package's own float32 step
+# puts rwkv's moments up to 5.2e-5 from float64, the error
 # tests/test_torch_train_rwkv.py holds the port to): u's second moment
-# moved 3.5e-5 from the unsharded one on these ranks.  A fault in a
-# sharded gradient (a shard missing or doubled) moves a tensor by O(1).
+# moved 3.5e-5 from the unsharded one on these ranks.  Jamba's Mamba
+# sums d_inner in two partial sums all-reduced, and its first Adam steps
+# on a zero-initialised ``conv_b`` put the unsharded float32 step 1.1e-5
+# from float64.  A fault in a sharded gradient (a shard missing or
+# doubled) moves a tensor by O(1).
 KIND_SPREAD = 2.5
 
 
@@ -93,28 +92,18 @@ def _rows(mesh, b):
 
 def leaf_classes(cfg, mesh) -> dict:
     """{name: class} of the port's parameters by their reference spec on
-    ``mesh``: "sharded" (a dim over a "model" dim of size > 1), "item 11"
-    or "item 12" (the known exceptions, :data:`KNOWN`), or "gathered"
-    (no dim over "model": the reference too gathers it whole at use, as
-    ZeRO-3 does)."""
+    ``mesh``: "sharded" (a dim over a "model" dim of size > 1: never to be
+    gathered whole) or "gathered" (no dim over "model": the reference too
+    gathers it whole at use, as ZeRO-3 does)."""
     from repro_torch.models import sharding as shd
     from repro_torch.train.steps import param_placements
     model = shd.mesh_size(mesh, "model")
-    data = shd.mesh_size(mesh, "data")
     out = {}
     for name, spec in param_placements(cfg, mesh).items():
         axes = [a for e in spec if e is not None
                 for a in ((e,) if isinstance(e, str) else e)]
-        parts = name.split(".")
-        if "model" not in axes or model == 1:
-            out[name] = "gathered"
-        elif (parts[0] == "layers" and parts[2] == "mixer"
-              and cfg.layer_kind(int(parts[1]))[0] == "mamba"):
-            out[name] = "item 11"
-        elif ("data", "model") in spec and data > 1:
-            out[name] = "item 12"
-        else:
-            out[name] = "sharded"
+        out[name] = ("sharded" if "model" in axes and model > 1
+                     else "gathered")
     return out
 
 
@@ -416,6 +405,35 @@ def _restore(tmp, out):
     out["restore"] = ok
 
 
+def _settled(mesh, out):
+    """``transformer._Settled``'s backward on this rank's gradient of a
+    (4, 3) activation in the row layout, placed ``Partial`` over
+    "model": it must come back in the row layout, each rank's part the
+    sum of its model group's parts; one already in the row layout must
+    pass unchanged."""
+    import types
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import _Settled
+    rank = dist.get_rank()
+    rows = shd.rows_of(mesh, torch.empty((4, 3)))
+    ctx = types.SimpleNamespace(mesh=mesh, pl=rows)
+    part = torch.arange(6.0).reshape(2, 3) * (rank + 1)
+    g = DTensor.from_local(part, mesh, shd.with_model(mesh, rows, Partial()))
+    got = _Settled.backward(ctx, g)[0]
+    group = dist.get_process_group_ranks(mesh.get_group("model"))
+    want = torch.arange(6.0).reshape(2, 3) * sum(r + 1 for r in group)
+    same = DTensor.from_local(part, mesh, rows)
+    out["settled"] = {
+        "placements": [str(p) for p in got.placements] == [
+            str(p) for p in rows],
+        "err": float((got.to_local() - want).abs().max()),
+        "passed_as_is": _Settled.backward(ctx, same)[0] is same}
+
+
 def worker(rank, world, mesh_name, tmp, archs, extras, spread):
     """One rank: each config of ``archs`` through train (``spread``:
     :func:`_train`'s), prefill and decode; then, with ``extras``, the
@@ -436,6 +454,8 @@ def worker(rank, world, mesh_name, tmp, archs, extras, spread):
             _train(arch, mesh, out[arch], spread)
             _prefill(arch, mesh, out[arch])
             _decode(arch, mesh, out[arch])
+        if extras:
+            _settled(mesh, out)
         if extras and "pod" in names:
             _cross_pod(mesh, tmp, out)
         elif extras:

@@ -632,11 +632,17 @@ def check_dots_policy_on_the_new_kinds():
     _, cfg = _cfgs("jamba-v0.1-52b", "float32")
     gen = torch.Generator().manual_seed(0)
     mam = tmb.init_mamba(gen, cfg)
-    xc = torch.randn((2, 32, cfg.d_inner), generator=gen)
-    assert decisions(lambda: tmb._ssm_params(mam, xc, cfg)) == [True, True]
+    x = torch.randn((2, 32, cfg.d_model), generator=gen)
+    # x @ w_in and xc @ w_x
+    assert decisions(lambda: tmb.mamba_split_in(mam, x, cfg)) == [True, True]
+    xc = torch.randn((2, 32, cfg.d_inner), generator=gen,
+                     requires_grad=True)
+    proj = (xc @ mam["w_x"]).detach().requires_grad_()
+    assert decisions(lambda: tmb._ssm_params(mam, xc, proj, cfg)) == [True]
     h0 = torch.zeros((2, cfg.d_inner, cfg.mamba_d_state))
-    scan = decisions(lambda: tmb._chunked_ssm(mam, xc, cfg, h0))
-    assert scan.count(False) == 32 // tmb._chunk_len(cfg, 32)   # readouts
+    scan = decisions(lambda: tmb._chunked_ssm(mam, xc, proj, cfg, h0))
+    chunks = 32 // tmb._chunk_len(cfg, 32)
+    assert scan.count(True) == scan.count(False) == chunks   # dt, readout
     jcfg, tcfg, _, pt = _moe("mixtral-8x7b", "float32", None)
     buf = torch.randn((2, pt["w1"].shape[0], 8, tcfg.d_model),
                       generator=gen)

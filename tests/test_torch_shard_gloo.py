@@ -7,10 +7,14 @@ the CPU, a (2, 2) ("data", "model") mesh and a (2, 1, 2) ("pod", "data",
 
 Per config and rank: sharded train steps, prefill and decode against the
 unsharded port within 1e-5, MoE routes equal, no parameter that the
-reference keeps over "model" gathered whole but the named exceptions
-(``_shard_gloo.KNOWN``), and a rank's matmul flops a quarter of the
-step's (the smoke widths divide every axis, so the reference replicates
-nothing but the router).  Then:
+reference keeps over "model" gathered whole (on the (2, 2) mesh the LM
+head and granite's MLP ``w1``, stored over ("data", "model"), come to
+each rank as its model block through an all-to-all), and a rank's matmul
+flops a quarter of the step's (the smoke widths divide every axis, so
+the reference replicates nothing but the router).  Then:
+  * on each mesh, the backward of the layer's settle (``transformer.
+    _Settled``) on a gradient placed ``Partial`` over "model": summed
+    over the model group into the row layout;
   * on the pod mesh, ``cross_pod_mean`` over the pod dim, held bit for
     bit to the JAX package's ``jax.vmap(cross_pod_mean,
     axis_name="pod")`` on the same numpy gradients;
@@ -84,16 +88,25 @@ def test_sharded_steps_on_four_gloo_ranks(mesh_name, tmp_path):
             # a rank's local matmul flops: a quarter of the step's
             assert 0.24 <= o["flops_share"] <= 0.26, (r, arch,
                                                       o["flops_share"])
-            # the detector sees the known item-12 gathers where the data
-            # dim is real (granite's MLP w1 and w3 and the LM head), and
-            # none where it has one rank
-            item12 = o["whole_gathers"].get("item 12", [])
-            if mesh_name == "single":
-                assert "embeddings.lm_head" in item12, o["whole_gathers"]
-                if arch == "granite-3-2b":
-                    assert "layers.0.ffn.w1" in item12, o["whole_gathers"]
-            else:
-                assert not item12, o["whole_gathers"]
+            # the LM head and granite's w1 and w3 are stored over ("data",
+            # "model"): never gathered whole, each rank's model block
+            # assembled by an all-gather over "data" and an all-to-all
+            # over "model" where the data dim is real
+            whole = [n for names in o["whole_gathers"].values()
+                     for n in names]
+            assert "embeddings.lm_head" not in whole, o["whole_gathers"]
+            assert "layers.0.ffn.w1" not in whole, o["whole_gathers"]
+            if arch == "granite-3-2b":
+                a2a = [any("all_to_all" in k for k in c) for c in o["comm"]]
+                assert (all(a2a) if mesh_name == "single"
+                        else not any(a2a)), o["comm"]
+    for r, out in enumerate(outs):
+        # the settle's backward all-reduces a gradient that arrives
+        # partial over "model" (the Mamba projection's) and passes one in
+        # the row layout as it is
+        s = out["settled"]
+        assert s["placements"] and s["err"] == 0.0 and s["passed_as_is"], \
+            (r, s)
     if mesh_name == "multi":
         port = np.load(tmp_path / "port_mean.npz")
         for k, want in ref.items():          # rank 0 is pod 0
