@@ -350,6 +350,32 @@ loudly on the first fault:
               ``launch.train.train_model`` through the local mesh, the
               same DTensor path, each beside the unsharded step at the
               same depth.
+30. mesh:placement — the placement chain on the port's own sharded
+              step, after shard:parity has destroyed its group: a fake
+              process group of 512 ranks in this process; the dry-run's
+              granite-3-2b train_4k cell on the multi mesh (2, 16, 16) at
+              full width and depth (``launch.dryrun.run_cell``: traced at
+              1 and 2 periods, extrapolated as its row is) and its
+              collective record (every collective resolved by its ranks;
+              an unresolved group fails the cell); the record's traffic
+              graph (``device_comm_graph``); ``fleet_monitor(record, 512,
+              pods=2, machine_model="tree", device="cuda")`` with the
+              launch counts set to 0 just before and read just after
+              (K1 and K2 must both launch); the order a permutation of
+              512 whose J is at most the identity's; the same
+              ``fleet_monitor`` on the CPU: the same order, or J within
+              1e-6 relative (the line says which held); outside that
+              launch window, K2 at the monitor's candidate pairs and K1
+              at its incumbent, on the plan's padded tensors of this
+              graph, held against their plain versions (K2 per pair
+              within K · 2⁻²³ of Σ|w| · d_max, K1 within 1e-6
+              relative); one quiet tick
+              (``observe_hlo(record)``, ``tick()``) commits no remap; then
+              decode_32k traced on ``make_production_mesh(devices=order)``
+              and on the identity layout: equal records.  Prints the
+              graph's edges and GiB a step, split into ICI and DCN by the
+              mesh dims each collective spans, both Js, the trace, map
+              and tick seconds and the launches; the group is destroyed.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 K4 one per route: route, source, the TPU kernel it replaces, launches on
@@ -363,9 +389,11 @@ and K2's ms is the device time per launch, and they add
 lanes, ``portfolio_launches``, their launches in the portfolio map, and
 ``shared_ms``, the device time of one launch of 8 lanes over one
 graph, ``remap_launches``, their launches in the remap phase's
-ticks, and ``service_launches``, their launches in the service phase's
-timed burst); before it a line with the whole run's seconds and one
-with the card's name and power limit; the last is ``{"ok": true,
+ticks, ``service_launches``, their launches in the service phase's
+timed burst, and ``placement_launches``, their launches in the
+mesh:placement phase's ``fleet_monitor``); before it a line with the
+whole run's seconds and one with the card's name and power limit; the
+last is ``{"ok": true,
 "device": {...}}``.  Without a card, or outside a checkout, it exits
 non-zero and prints no result.  ``--stop-after
 build|kernels|lint|portfolio|remap|service`` runs the phases up to that one
@@ -4744,6 +4772,171 @@ def phase_shard_parity():
           "phase_s": time.perf_counter() - t_phase})
 
 
+# mesh:placement: the dry-run's granite-3-2b train_4k cell on the multi
+# mesh (2, 16, 16) at full width and depth, its collective record mapped
+# onto the tree fleet of 2 pods; decode_32k retraced on the placed and
+# the identity layout; the card's order held to the CPU's, or its J
+# within objective_rtol relative where the float32 sums differ
+PLACEMENT = {"arch": "granite-3-2b", "shape": "train_4k",
+             "placed_shape": "decode_32k", "devices": 512, "pods": 2,
+             "machine_model": "tree", "objective_rtol": 1e-6}
+
+
+def placement_kernels(mon, q) -> dict:
+    """K2 at the monitor's candidate pairs and K1 at its incumbent, on
+    the record's graph and the fleet's form at the plan's bucket shapes
+    (the tensors the plan's sweep gives them), each held against its
+    plain version on the same inputs.  K2 per pair within K · 2⁻²³ of
+    the pair's Σ|w| · d_max over its two rows: the float32 rounding
+    bound of two K-slot sums taken in different orders (the record's
+    weights are bytes, not integers below 2²⁴, so the kernel's
+    in-order sum and torch's reduction may differ in the last bits;
+    bit-equality is reported beside it).  K1 within ``objective_rtol``
+    relative.  Outside the main path's launch window."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (pair_gains, pair_gains_plain,
+                                     qap_objective_edges,
+                                     qap_objective_plain)
+    eng = mon.plan.engines[0]
+    dg, us, vs = eng.shared_inputs(mon.baseline, mon.pairs,
+                                   mon.plan.bucket)
+    perm = torch.from_numpy(mon.incumbent.astype(np.int32)).to(DEVICE)
+    cfg = eng.kernel_config
+    args = (eng.kind, eng.params, dg.nbr, dg.wgt, perm, us, vs, eng._D)
+    got = pair_gains(*args, config=cfg)
+    want = pair_gains_plain(*args, config=cfg)
+    d_max = float(np.max(eng.topology.matrix()))
+    row = dg.wgt.abs().sum(dim=1)
+    scale = (row[us.long()] + row[vs.long()]) * d_max
+    err = torch.abs(got - want)
+    worst = float(torch.max(err / torch.clamp(scale, min=1.0)))
+    gain_rtol = dg.max_deg * 2.0 ** -23
+    check(worst <= gain_rtol, f"mesh:placement: K2 at the plan's pairs "
+          f"off its plain version by {worst} of Σ|w|·d_max (limit "
+          f"{gain_rtol})")
+    p = len(mon.pairs)
+    check(bool(torch.all(got[p:] == 0.0)),
+          "mesh:placement: K2's padding pairs have nonzero gain")
+    eargs = (eng.kind, eng.params, dg.eu, dg.ev, dg.ew, perm, eng._D)
+    j_kernel = float(qap_objective_edges(*eargs))
+    j_plain = float(qap_objective_plain(*eargs))
+    j_rel = abs(j_kernel - j_plain) / max(abs(j_plain), 1.0)
+    check(j_rel <= q["objective_rtol"], f"mesh:placement: K1 at the "
+          f"incumbent {j_kernel} vs plain {j_plain} (relative {j_rel})")
+    return {"pairs": p, "P": int(us.shape[0]), "K": int(dg.max_deg),
+            "E": int(dg.eu.shape[0]),
+            "k2_max_abs_err": float(torch.max(err)),
+            "k2_max_rel_err": worst, "k2_rtol": gain_rtol,
+            "k2_bit_equal": bool(torch.equal(got, want)),
+            "k2_positive": int(torch.sum(got[:p] > 0)),
+            "k2_max_gain": float(torch.max(want[:p])),
+            "k1_kernel": j_kernel, "k1_plain": j_plain, "k1_rel_err": j_rel}
+
+
+def phase_mesh_placement():
+    """mesh:placement (module notes, 30)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import qap_objective
+    from repro_torch.core.comm_model import device_comm_graph
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fleet_model, fleet_monitor
+    q = PLACEMENT
+    n = q["devices"]
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "mesh:placement: a process group is "
+          "still up after shard:parity")
+    dryrun.init_fake_group(n)
+    try:
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(q["arch"], q["shape"], True, save=False)
+        trace_s = time.perf_counter() - t0
+        check(row["status"] == "ok", f"mesh:placement: the {q['shape']} "
+              f"trace failed: {row.get('error')}")
+        record = row["collective_record"]
+        g = device_comm_graph(record, n)
+        parts = {}
+        for name, dcn in (("ici", False), ("dcn", True)):
+            part = [(op, groups, nbytes, calls)
+                    for op, dims, groups, nbytes, calls in record.instances
+                    if ("pod" in dims) == dcn]
+            pg = device_comm_graph(part, n)
+            parts[name] = {"instances": len(part),
+                           "edges": int(pg.num_edges),
+                           "gib_per_step": pg.total_edge_weight() / 2 ** 30}
+        kw = dict(pods=q["pods"], machine_model=q["machine_model"])
+        reset_launches()
+        t0 = time.perf_counter()
+        mon, order = fleet_monitor(record, n, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        launches = read_launches()
+        check_launched(launches, MAP_KERNELS, "mesh:placement")
+        check(sorted(order.tolist()) == list(range(n)),
+              "mesh:placement: the card's order is no permutation")
+        h = fleet_model(q["machine_model"], pods=q["pods"])
+        j_order = qap_objective(g, h, order)
+        j_identity = qap_objective(g, h, np.arange(n))
+        check(j_order <= j_identity, f"mesh:placement: J {j_order} of the "
+              f"order above the identity's {j_identity}")
+        t0 = time.perf_counter()
+        _, order_cpu = fleet_monitor(record, n, device="cpu", **kw)
+        cpu_map_s = time.perf_counter() - t0
+        j_cpu = qap_objective(g, h, order_cpu)
+        same_order = bool(np.array_equal(order, order_cpu))
+        j_rel = abs(j_order - j_cpu) / max(abs(j_cpu), 1.0)
+        check(same_order or j_rel <= q["objective_rtol"],
+              f"mesh:placement: the card's J {j_order} vs the CPU's "
+              f"{j_cpu} (relative {j_rel})")
+        held = placement_kernels(mon, q)
+        t0 = time.perf_counter()
+        mon.observe_hlo(record)
+        tick = mon.tick()
+        tick_s = time.perf_counter() - t0
+        check(not tick.remapped and mon.remaps == 0,
+              f"mesh:placement: the quiet tick remapped ({tick})")
+        t0 = time.perf_counter()
+        rows = {label: dryrun.run_cell(q["arch"], q["placed_shape"], True,
+                                       save=False, devices=devices,
+                                       tag=label)
+                for label, devices in (("placed", order),
+                                       ("identity", None))}
+        retrace_s = time.perf_counter() - t0
+        for label, r in rows.items():
+            check(r["status"] == "ok", f"mesh:placement: the {label} "
+                  f"{q['placed_shape']} trace failed: {r.get('error')}")
+        check(rows["placed"]["collective_record"]
+              == rows["identity"]["collective_record"],
+              "mesh:placement: the placed mesh's record differs from the "
+              "identity mesh's")
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "mesh:placement", "arch": q["arch"], "shape": q["shape"],
+          "mesh": [2, 16, 16], "devices": n,
+          "machine_model": q["machine_model"],
+          "record_instances": len(record.instances),
+          "graph": {"edges": int(g.num_edges),
+                    "gib_per_step": g.total_edge_weight() / 2 ** 30,
+                    **parts},
+          "row_ici_s": row["ici_s"], "row_dcn_s": row["dcn_s"],
+          "j_identity": j_identity, "j_order": j_order, "j_cpu": j_cpu,
+          "order_is_identity": bool(np.array_equal(order, np.arange(n))),
+          "same_order_as_cpu": same_order, "j_rel_to_cpu": j_rel,
+          "launches": {k: launches[k] for k in MAP_KERNELS},
+          "kernels_held": held,
+          "tick": {"remapped": tick.remapped, "triggered": tick.triggered,
+                   "drift": tick.drift.score},
+          "placed_shape": q["placed_shape"], "placed_record_equal": True,
+          "trace_s": trace_s, "map_s": map_s, "cpu_map_s": cpu_map_s,
+          "tick_s": tick_s, "retrace_s": retrace_s,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
@@ -4820,6 +5013,7 @@ def main(argv) -> int:
         phase_train_kind(label)
     phase_train_kinds_parity()
     phase_shard_parity()
+    placement_launches = phase_mesh_placement()
     kernels = []
     for rec, launches, name, source, replaces in (
             (k1, main_run["launches"], "qap_objective",
@@ -4858,7 +5052,8 @@ def main(argv) -> int:
                 portfolio_launches=pf["launches"][name],
                 shared_ms=rec["shared_ms"],
                 remap_launches=remap["remap_launches"][name],
-                service_launches=service["launches"][name])
+                service_launches=service["launches"][name],
+                placement_launches=placement_launches[name])
     emit({"phase": "total", "seconds": time.perf_counter() - t_run})
     print(card, flush=True)
     emit({"kernels": kernels})

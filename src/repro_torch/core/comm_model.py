@@ -9,7 +9,9 @@ collectives *are* its communication pattern, so
 :func:`device_comm_graph` parses the program's optimized HLO *text*
 (:mod:`repro_torch.analysis.hlo`, which needs no XLA: the text comes
 from a compiled program or a saved fixture) and builds the
-per-device-pair traffic graph under ring collective algorithms:
+per-device-pair traffic graph under ring collective algorithms (it also
+takes the collectives themselves, as the port's dry-run records them:
+``launch.dryrun.CollectiveRecord``):
 
   all-reduce       ring edges, 2(g−1)/g · bytes per link
   all-gather       ring edges, (g−1) · shard bytes per link
@@ -40,8 +42,13 @@ __all__ = ["device_comm_graph", "generate_model",
            "logical_traffic_summary"]
 
 
-def device_comm_graph(hlo_text: str, n_devices: int) -> CommGraph:
-    """Per-device-pair traffic graph (bytes) from optimized SPMD HLO."""
+def device_comm_graph(program, n_devices: int) -> CommGraph:
+    """Per-device-pair traffic graph (bytes) from optimized SPMD HLO
+    text, or from an iterable of ``(op, groups, operand_bytes,
+    multiplier)`` instances as :func:`collective_instances` yields them
+    (a ``launch.dryrun.CollectiveRecord``)."""
+    instances = (collective_instances(program) if isinstance(program, str)
+                 else program)
     acc: dict[tuple[int, int], float] = defaultdict(float)
 
     def add(a: int, b: int, w: float):
@@ -50,7 +57,7 @@ def device_comm_graph(hlo_text: str, n_devices: int) -> CommGraph:
         key = (a, b) if a < b else (b, a)
         acc[key] += w
 
-    for op, groups, nbytes, mult in collective_instances(hlo_text):
+    for op, groups, nbytes, mult in instances:
         if op == "collective-permute":
             for pair in groups:
                 if len(pair) == 2:

@@ -22,16 +22,36 @@ rank-local op below DTensor.  Row fields, as the reference's:
     eager op's operand and result bytes (views move nothing; nothing is
     fused, so this is the eager port's traffic), as
     ``analysis.hlo._hbm_traffic`` prices an instruction;
-  * collectives: each functional collective's operand bytes times
-    ``analysis.hlo._ring_factor`` for its group size; a group over the
-    ``pod`` mesh dim counts as DCN, all others as ICI;
+  * collectives: each of the record's collectives (below), its
+    operand bytes times its calls times ``analysis.hlo._ring_factor``
+    for its group size.  A collective's
+    process group is resolved by its ranks (:func:`mesh_span`): mapped
+    through the inverse of the mesh's rank layout to logical
+    coordinates, they give the mesh dims S the group spans, and the
+    group must be the product of S through this rank's coordinates or
+    the cell fails with the group's ranks — no group is priced by a
+    default size, whichever mesh object's groups DTensor reuses.  A
+    group whose S holds ``pod`` (a bare ``pod`` group, or one flattened
+    over (``pod``, ``data``)) counts as DCN, all others as ICI;
   * the roofline row through ``analysis.roofline_from_cost``.  Its
     constants and the 16 GiB of ``fits_16g`` are the mapped TPU fleet's
     (v5e), not the card's.
 
+The collective record (:class:`CollectiveRecord`) is the counterpart of
+the reference's saved HLO: each distinct (collective, S, operand bytes)
+with every parallel group over S in logical device ids (positions in
+the mesh's row-major layout) and its calls a step, extrapolated to the
+config's depth and microbatches as the row's numbers are.  It yields
+what ``analysis.hlo.collective_instances`` yields from HLO, so
+``core.comm_model.device_comm_graph``, ``launch.mesh.viem_device_order``
+and ``fleet_monitor`` take it in place of HLO text.  It is in logical
+ids, so a cell traced on a placed mesh (``run_cell(..., devices=order)``)
+gives the same record.  ``--save-collectives`` writes it per ok cell to
+``<out>/collectives/<arch>__<shape>__<mesh>.collectives.json``, and
+:func:`load_collectives` reads it back.
+
 The fake process group is set up before anything else, as the reference
-sets ``XLA_FLAGS`` first.  There is no HLO, so the reference's
-``--save-hlo`` has no counterpart.  Rows land in
+sets ``XLA_FLAGS`` first.  Rows land in
 ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json`` and a summary
 line is printed per cell; the CLI exits non-zero if any cell failed.
 
@@ -39,6 +59,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-8b \\
         --shape train_4k --mesh single          # one cell
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh both]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \\
+        --shape train_4k --mesh multi --save-collectives   # and its record
 """
 
 from __future__ import annotations
@@ -51,8 +73,10 @@ import os
 import time
 import traceback
 import weakref
+from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -60,7 +84,8 @@ from ..analysis.hlo import CollectiveStat, HloCost, _ring_factor
 from ..analysis.roofline import roofline_from_cost
 from ..configs import ARCHS, SHAPES, get_config, supports_shape
 
-__all__ = ["TraceCost", "init_fake_group", "local_bytes", "main",
+__all__ = ["CollectiveRecord", "TraceCost", "init_fake_group",
+           "load_collectives", "local_bytes", "main", "mesh_span",
            "run_cell"]
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / \
@@ -91,6 +116,111 @@ def init_fake_group(world: int) -> None:
                             world_size=world)
 
 
+def parallel_groups(shape, span) -> list:
+    """Every group over the mesh dims ``span`` (indices into ``shape``)
+    in logical device ids (positions in the mesh's row-major layout),
+    each in ring order: row-major over ``span`` — what HLO's iota
+    ``replica_groups=[n/g,g]<=[shape]T(perm)`` lists, ``perm`` the other
+    dims, then ``span``."""
+    span = list(span)
+    rest = [i for i in range(len(shape)) if i not in span]
+    g = int(np.prod([shape[i] for i in span], dtype=np.int64))
+    ids = np.arange(int(np.prod(shape))).reshape(shape)
+    return ids.transpose(rest + span).reshape(-1, g).tolist()
+
+
+def mesh_span(mesh, group_name: str) -> tuple:
+    """The names of the mesh dims process group ``group_name`` spans.
+    The group is resolved to its ranks, the ranks to
+    logical coordinates through the inverse of ``mesh.mesh``; the dims
+    along which they vary are the span, and the group must be the
+    product of the span through this rank's coordinates, or this
+    raises with the group's ranks.  Any group over the same ranks
+    resolves alike, whichever mesh object made it."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ranks = dist.get_process_group_ranks(_resolve_process_group(group_name))
+    if mesh is None:
+        raise ValueError(f"a collective over ranks {ranks} in a call "
+                         f"traced without a mesh")
+    shape = tuple(mesh.mesh.shape)
+    where = {int(r): i for i, r in enumerate(mesh.mesh.flatten().tolist())}
+    me = dist.get_rank()
+    if me not in where or any(r not in where for r in ranks):
+        raise ValueError(f"a collective over ranks {ranks}: not all on "
+                         f"the mesh {mesh.mesh_dim_names} {shape}")
+    here = np.unravel_index(where[me], shape)
+    coords = np.unravel_index([where[r] for r in ranks], shape)
+    span = [i for i in range(len(shape))
+            if (np.asarray(coords[i]) != here[i]).any()]
+    through = np.arange(len(where)).reshape(shape)[tuple(
+        slice(None) if i in span else here[i] for i in range(len(shape)))]
+    if sorted(where[r] for r in ranks) != sorted(through.ravel().tolist()):
+        raise ValueError(
+            f"a collective over ranks {ranks} is no product of mesh dims "
+            f"through rank {me} on the mesh {mesh.mesh_dim_names} "
+            f"{shape}")
+    return tuple(mesh.mesh_dim_names[i] for i in span)
+
+
+@dataclasses.dataclass
+class CollectiveRecord:
+    """A traced step's collectives: the port's counterpart of the
+    compiled step's HLO for the placement chain.  ``instances`` holds
+    ``(op, dims, groups, operand_bytes, multiplier)``: ``dims`` the
+    mesh dims the collective spans, ``groups`` every parallel group over
+    them in logical device ids (:func:`parallel_groups`; one rank's
+    trace stands for all, as SPMD runs the same collective in each),
+    ``operand_bytes`` one rank's input, ``multiplier`` the calls a step.
+    Iterating yields ``(op, groups, operand_bytes, multiplier)``, what
+    ``analysis.hlo.collective_instances`` yields from HLO text, so
+    ``core.comm_model.device_comm_graph`` and everything built on it
+    (``launch.mesh.viem_device_order``, ``fleet_monitor``,
+    ``RemapMonitor.observe_hlo``) take a record as they take HLO."""
+    shape: tuple
+    dim_names: tuple
+    instances: list
+
+    def __iter__(self):
+        for op, _, groups, nbytes, mult in self.instances:
+            yield op, groups, nbytes, mult
+
+    def to_json(self) -> dict:
+        return {"shape": list(self.shape), "dim_names": list(self.dim_names),
+                "instances": [{"op": op, "dims": list(dims), "groups": groups,
+                               "operand_bytes": nbytes, "multiplier": mult}
+                              for op, dims, groups, nbytes, mult
+                              in self.instances]}
+
+    @classmethod
+    def from_json(cls, d: dict) -> CollectiveRecord:
+        return cls(tuple(d["shape"]), tuple(d["dim_names"]),
+                   [(i["op"], tuple(i["dims"]), i["groups"],
+                     int(i["operand_bytes"]), float(i["multiplier"]))
+                    for i in d["instances"]])
+
+
+def collective_record(counts: dict, mesh) -> CollectiveRecord:
+    """The record of ``counts`` ((op, dims, operand bytes) → calls a
+    step) on ``mesh``'s layout, sorted by key."""
+    shape = tuple(mesh.mesh.shape)
+    names = tuple(mesh.mesh_dim_names)
+    out = []
+    for (op, dims, nbytes), calls in sorted(counts.items()):
+        if calls < 0:
+            raise ValueError(f"{op} over {dims} of {nbytes} bytes: "
+                             f"{calls} calls a step")
+        if calls:
+            groups = parallel_groups(shape, [names.index(d) for d in dims])
+            out.append((op, tuple(dims), groups, int(nbytes), float(calls)))
+    return CollectiveRecord(shape, names, out)
+
+
+def load_collectives(path) -> CollectiveRecord:
+    """A record written by ``--save-collectives``."""
+    return CollectiveRecord.from_json(json.loads(Path(path).read_text()))
+
+
 def _tensors(x):
     if isinstance(x, torch.Tensor):
         yield x
@@ -107,19 +237,23 @@ def _nbytes(t) -> int:
 
 
 class TraceCost(TorchDispatchMode):
-    """Counts the rank-local ops of a traced call: flops, HBM bytes,
-    collectives by mesh dim, and the peak of live bytes the call made.
+    """Counts the rank-local ops of a traced call on ``mesh``: flops, HBM
+    bytes, the calls of each collective by the mesh dims it spans and its
+    operand bytes (the record's counts), and the peak of live bytes the
+    call made.
     DTensor-level ops are passed to DTensor (``NotImplemented``), so the
     mode sees the local ops and collectives DTensor issues; the fake
     tensors of DTensor's sharding propagation are skipped."""
 
-    def __init__(self, group_dims: dict):
+    def __init__(self, mesh=None):
         super().__init__()
-        self.group_dims = group_dims     # group name → (mesh dim, size)
+        self.mesh = mesh                 # the DeviceMesh of the traced call
         self.flops = 0.0
         self.dot_flops = 0.0
         self.hbm_bytes = 0.0
-        self.collectives: list = []
+        # (op, dims spanned, operand bytes) → calls: the record's counts
+        self.instances: dict = defaultdict(int)
+        self._spans: dict = {}
         self.live = 0
         self.peak = 0
         self._seen: dict = {}
@@ -209,16 +343,16 @@ class TraceCost(TorchDispatchMode):
         self.dot_flops += n
 
     def _collective(self, op: str, args):
-        t = args[0]
-        group = args[-1]
-        dim, size = self.group_dims.get(group, ("?", 2))
-        raw = float(_nbytes(t))
-        wire = raw * _ring_factor(op, size)
-        cross = dim == "pod"
-        self.collectives.append(CollectiveStat(
-            op=op, wire_bytes=wire, raw_bytes=raw, count=1,
-            group_size=size, cross_pod=cross,
-            ici_wire=0.0 if cross else wire, dcn_wire=wire if cross else 0.0))
+        self.instances[(op, self._span(args[-1]), _nbytes(args[0]))] += 1
+
+    def _span(self, group_name: str) -> tuple:
+        """The mesh dims a process group spans, from the group's ranks:
+        they must be the product of those dims through this rank's
+        coordinates (a group a cached DTensor spec carries from another
+        mesh over the same ranks resolves as well)."""
+        if group_name not in self._spans:
+            self._spans[group_name] = mesh_span(self.mesh, group_name)
+        return self._spans[group_name]
 
     def add_flash(self, q, k, v, window):
         from ..kernels.flash_attention import flash_flops
@@ -227,12 +361,6 @@ class TraceCost(TorchDispatchMode):
         self.flops += n
         self.dot_flops += n
         self.hbm_bytes += sum(_nbytes(x) for x in (q, k, v)) + _nbytes(q)
-
-    def cost(self, trip_counts: dict) -> HloCost:
-        return HloCost(flops=self.flops, dot_flops=self.dot_flops,
-                       hbm_bytes=self.hbm_bytes,
-                       collectives=list(self.collectives),
-                       trip_counts=dict(trip_counts))
 
 
 def local_bytes(mesh, shape, dtype, spec) -> int:
@@ -275,12 +403,11 @@ def _cache_bytes(mesh, cfg, caches, batch: int) -> int:
 
 def _numbers(rec: TraceCost) -> dict:
     """A trace's additive quantities: flops, HBM bytes, the peak, and the
-    wire bytes per (collective, crosses pods)."""
+    calls per (collective, dims, operand bytes)."""
     out = {"flops": rec.flops, "dot_flops": rec.dot_flops,
            "hbm_bytes": rec.hbm_bytes, "peak": float(rec.peak)}
-    for c in rec.collectives:
-        key = ("coll", c.op, c.cross_pod)
-        out[key] = out.get(key, 0.0) + c.wire_bytes
+    for key, calls in rec.instances.items():
+        out[("calls", *key)] = float(calls)
     return out
 
 
@@ -307,12 +434,21 @@ def _microbatched(step: dict, opt: dict, microbatches: int) -> dict:
     return out
 
 
-def _cost(nums: dict, trip_counts: dict) -> HloCost:
-    colls = [CollectiveStat(op=k[1], wire_bytes=v, raw_bytes=0.0, count=1,
-                            cross_pod=k[2], ici_wire=0.0 if k[2] else v,
-                            dcn_wire=v if k[2] else 0.0)
-             for k, v in sorted(nums.items(), key=str)
-             if isinstance(k, tuple) and v]
+def _cost(nums: dict, record: CollectiveRecord,
+          trip_counts: dict) -> HloCost:
+    """The row's cost: ``nums``' flops and bytes, and each of the
+    record's collectives priced as its operand bytes times its calls
+    times ``_ring_factor`` for its group size, DCN where it spans
+    ``pod``, ICI otherwise."""
+    colls = []
+    for op, dims, groups, nbytes, calls in record.instances:
+        raw = float(nbytes) * calls
+        wire = raw * _ring_factor(op, len(groups[0]))
+        cross = "pod" in dims
+        colls.append(CollectiveStat(
+            op=op, wire_bytes=wire, raw_bytes=raw, count=calls,
+            group_size=len(groups[0]), cross_pod=cross,
+            ici_wire=0.0 if cross else wire, dcn_wire=wire if cross else 0.0))
     return HloCost(flops=nums["flops"], dot_flops=nums["dot_flops"],
                    hbm_bytes=nums["hbm_bytes"], collectives=colls,
                    trip_counts=dict(trip_counts))
@@ -397,13 +533,14 @@ def _trace(cfg, shape_name: str, mesh, rec: TraceCost, gb: int,
             fn(params, token, caches, step)
 
 
-def _run(cfg, shape_name: str, mesh, group_dims: dict):
-    """The cell's (kind, arg, out, alias bytes, cost, temp bytes): the
-    step traced at one and two periods of layers (training: with one
-    microbatch of the default count's size, and its AdamW update alone),
-    extrapolated to the config's depth and microbatch count — the port's
-    counterpart of the reference's scan bodies priced times their trip
-    counts."""
+def _run(cfg, shape_name: str, mesh):
+    """The cell's (kind, arg, out, alias bytes, cost, temp bytes,
+    collective record): the step traced at one and two periods of layers
+    (training: with one microbatch of the default count's size, and its
+    AdamW update alone), extrapolated to the config's depth and
+    microbatch count — the port's counterpart of the reference's scan
+    bodies priced times their trip counts (the record's multipliers
+    likewise)."""
     from ..kernels import flash_attention as fa
     from ..train import steps
     shape = SHAPES[shape_name]
@@ -414,7 +551,7 @@ def _run(cfg, shape_name: str, mesh, group_dims: dict):
     per_mb = shape.global_batch // mb
 
     def traced(sub, opt_only=False):
-        rec = TraceCost(group_dims)
+        rec = TraceCost(mesh)
         fa.META_OBSERVERS.append(rec.add_flash)
         try:
             _trace(sub, shape_name, mesh, rec, per_mb, 1, opt_only)
@@ -430,12 +567,23 @@ def _run(cfg, shape_name: str, mesh, group_dims: dict):
             at[p] = _microbatched(at[p], traced(sub, opt_only=True), mb)
     trips = {"periods": n_periods, "microbatches": mb}
     nums = _extrapolate(at, n_periods)
-    return kind, arg, out, alias, _cost(nums, trips), int(nums["peak"])
+    record = collective_record({k[1:]: v for k, v in nums.items()
+                                if isinstance(k, tuple) and k[0] == "calls"},
+                               mesh)
+    return (kind, arg, out, alias, _cost(nums, record, trips),
+            int(nums["peak"]), record)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              save: bool = True, overrides: dict | None = None,
-             tag: str = "", out_dir: Path | None = None) -> dict:
+             tag: str = "", out_dir: Path | None = None, devices=None,
+             save_collectives: bool = False) -> dict:
+    """One cell's row.  ``devices``: the mesh's rank layout, as
+    ``make_production_mesh`` takes it (default: in order).  An ``ok``
+    row carries the step's :class:`CollectiveRecord` under
+    ``collective_record`` (left out of the saved row;
+    ``save_collectives`` writes it to
+    ``<out>/collectives/<arch>__<shape>__<mesh>.collectives.json``)."""
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.tensor.debug import CommDebugMode
 
@@ -460,15 +608,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         # the fleet's mesh is a CUDA one (on a CPU mesh DTensor gathers
         # where a fleet runs an all-to-all); over the fake group on meta
         # tensors it needs no card
-        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        mesh = make_production_mesh(multi_pod=multi_pod, devices=devices,
+                                    device="cpu")
         mesh = DeviceMesh("cuda", mesh.mesh,
                           mesh_dim_names=mesh.mesh_dim_names)
-        dims = {mesh.get_group(i).group_name: (name, mesh.size(i))
-                for i, name in enumerate(mesh.mesh_dim_names)}
         comm = CommDebugMode()
         with comm:
-            kind, arg, out, alias, cost, temp = _run(cfg, shape_name, mesh,
-                                                     dims)
+            kind, arg, out, alias, cost, temp, record = _run(
+                cfg, shape_name, mesh)
         t_trace = time.time() - t0
     except Exception as e:  # sharding bug — fail loudly with context
         row["status"] = "FAILED"
@@ -502,6 +649,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
            for k, v in rl.row().items()},
     })
     _save(row, save, out_dir)
+    if save_collectives:
+        d = Path(out_dir or OUT_DIR) / "collectives"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{arch}__{shape_name}__{mesh_name}.collectives.json"
+         ).write_text(json.dumps(record.to_json()))
+    row["collective_record"] = record
     return row
 
 
@@ -546,6 +699,9 @@ def main(argv=None):
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=None,
                     help=f"directory of the rows (default {OUT_DIR})")
+    ap.add_argument("--save-collectives", action="store_true",
+                    help="write each ok cell's collective record to "
+                         "<out>/collectives/ (load_collectives reads it)")
     ap.add_argument("--overrides", default="",
                     help="JSON of further config fields, e.g. "
                          "'{\"n_layers\": 8}'")
@@ -577,7 +733,8 @@ def main(argv=None):
         for arch in archs:
             for shape in shapes:
                 r = run_cell(arch, shape, mp, overrides=overrides or None,
-                             tag=args.tag, out_dir=args.out)
+                             tag=args.tag, out_dir=args.out,
+                             save_collectives=args.save_collectives)
                 print(fmt_row(r), flush=True)
                 if r["status"] == "FAILED":
                     print(r["traceback"], flush=True)

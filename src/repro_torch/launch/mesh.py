@@ -11,7 +11,9 @@ over a process group of that many ranks (a real one on a fleet, the
 process group.
 
 ``viem_device_order`` is the paper integrated as a launch feature: given a
-compiled step's HLO text, extract the logical-device traffic graph
+compiled step's HLO text, or the port's own sharded step's collective
+record (``launch.dryrun.CollectiveRecord``: ``--save-collectives``,
+``load_collectives``), extract the logical-device traffic graph
 (core.comm_model), model the physical fleet — either the paper-style tree
 hierarchy (core.hierarchy.tpu_v5e_fleet) or the honest ICI model, a 2D
 torus per pod (repro_torch.topology.tpu_v5e_torus) — and solve the sparse
@@ -78,22 +80,25 @@ def fleet_model(machine_model: str = "tree", pods: int = 2):
     return make_topology(machine_model)
 
 
-def viem_device_order(hlo_text: str, n_devices: int, pods: int = 2,
+def viem_device_order(program, n_devices: int, pods: int = 2,
                       preconfiguration: str = "eco",
                       neighborhood_dist: int = 10, seed: int = 0,
                       machine_model: str = "tree", device=None):
     """Logical→physical assignment minimizing modeled collective cost.
 
-    ``machine_model`` selects the fleet model (see :func:`fleet_model`);
-    the default stays the paper-style tree hierarchy.
+    ``program`` is HLO text or a collective record (anything
+    ``core.comm_model.device_comm_graph`` takes).  ``machine_model``
+    selects the fleet model (see :func:`fleet_model`); the default stays
+    the paper-style tree hierarchy.
 
     Returns (device_order, result): ``device_order[i]`` is the physical
-    chip that logical device i should use.
+    chip that logical device i should use — pass it to
+    :func:`make_production_mesh` as ``devices``.
     """
     from ..core import Mapper, MappingSpec
     from ..core.comm_model import device_comm_graph
 
-    g = device_comm_graph(hlo_text, n_devices)
+    g = device_comm_graph(program, n_devices)
     h = fleet_model(machine_model, pods=pods)
     if h.n_pe != n_devices:
         raise ValueError(f"fleet has {h.n_pe} PEs but program uses "
@@ -107,13 +112,13 @@ def viem_device_order(hlo_text: str, n_devices: int, pods: int = 2,
     return np.asarray(res.perm, dtype=np.int64), res
 
 
-def fleet_monitor(hlo_text: str, n_devices: int, pods: int = 2,
+def fleet_monitor(program, n_devices: int, pods: int = 2,
                   preconfiguration: str = "eco",
                   neighborhood_dist: int = 10, seed: int = 0,
                   machine_model: str = "tree", config=None,
                   cost=None, registry=None, on_remap=None, device=None):
     """Closed-loop counterpart of :func:`viem_device_order`: map once,
-    then keep watching.
+    then keep watching.  ``program`` is HLO text or a collective record.
 
     Builds a :class:`~repro_torch.monitor.RemapMonitor` whose incumbent
     is the initial VieM device order for this program, lowered with
@@ -122,7 +127,8 @@ def fleet_monitor(hlo_text: str, n_devices: int, pods: int = 2,
     ``observe_edges`` from transport counters), ``tick()`` per window,
     and ``attach(straggler_monitor)`` so ``REBALANCE`` signals flow
     through the same replay gate.  Committed remaps invoke
-    ``on_remap(device_order, verdict)``.
+    ``on_remap(device_order, verdict)`` — rebuild the mesh with
+    ``make_production_mesh(devices=device_order)``.
 
     Returns ``(monitor, device_order)``.
     """
@@ -130,7 +136,7 @@ def fleet_monitor(hlo_text: str, n_devices: int, pods: int = 2,
     from ..core.comm_model import device_comm_graph
     from ..monitor import MonitorConfig, RemapMonitor
 
-    g = device_comm_graph(hlo_text, n_devices)
+    g = device_comm_graph(program, n_devices)
     h = fleet_model(machine_model, pods=pods)
     if h.n_pe != n_devices:
         raise ValueError(f"fleet has {h.n_pe} PEs but program uses "

@@ -124,8 +124,9 @@ class RemapMonitor:
         self.history: list[TickReport] = []
 
     # ---------------------------------------------------------- observations
-    def observe_hlo(self, hlo_text: str) -> None:
-        self.profiler.ingest_hlo(hlo_text)
+    def observe_hlo(self, program) -> None:
+        """A (re)compiled step's HLO text or collective record."""
+        self.profiler.ingest_hlo(program)
 
     def observe_graph(self, g: CommGraph) -> None:
         self.profiler.ingest_graph(g)

@@ -2,7 +2,8 @@
 the port's copy of the JAX package's ``monitor/profiler.py``.
 
 A :class:`TrafficProfiler` accumulates traffic observations for the
-current window — compiled HLO text (priced through
+current window — compiled HLO text or a traced step's collective record
+(priced through
 :func:`~repro_torch.core.comm_model.device_comm_graph`'s ring-collective
 model), an already-extracted :class:`~repro_torch.core.graph.CommGraph`, raw
 ``(u, v, bytes)`` edge observations, or recorded tracer spans carrying
@@ -96,10 +97,12 @@ class TrafficProfiler:
         for (u, v), w in _edge_dict(g).items():
             self._add(u, v, w)
 
-    def ingest_hlo(self, hlo_text: str) -> None:
-        """Compiled HLO for one (re)compiled step: collectives priced
-        through the ring model into per-device-pair bytes."""
-        self.ingest_graph(device_comm_graph(hlo_text, self.n))
+    def ingest_hlo(self, program) -> None:
+        """Compiled HLO for one (re)compiled step, or the port's traced
+        step's collective record (``launch.dryrun.CollectiveRecord``):
+        collectives priced through the ring model into per-device-pair
+        bytes."""
+        self.ingest_graph(device_comm_graph(program, self.n))
 
     def ingest_spans(self, spans) -> None:
         """Recorded tracer spans carrying ``src``/``dst``/``bytes``

@@ -265,9 +265,7 @@ def _train(arch, mesh, out, spread=None):
                                        microbatches=2)
     fn1, _, _ = steps.build_train_step(cfg, mesh, global_batch=B,
                                        microbatches=2)
-    dims = {mesh.get_group(i).group_name: (n, mesh.size(i))
-            for i, n in enumerate(mesh.mesh_dim_names)}
-    r0, r1 = TraceCost({}), TraceCost(dims)
+    r0, r1 = TraceCost(), TraceCost(mesh)
     steps.place_train_state(st, cfg, mesh)
     route_err = []
     whole = {}
